@@ -1,0 +1,338 @@
+"""AttFind extraction: the StyleSpace attribute search.
+
+The reference walks image x style coordinate x direction one perturbation
+at a time, mutating ``to_style{1,2}.bias`` and running a batch-1 generator
+and classifier forward for each. The mutation is an additive delta on the
+style activations, so here the sweep is a batch: chunks of ``coord_batch``
+perturbations, each a generator forward with a (chunk, num_coords) one-hot
+``style_delta`` followed by one classifier forward. Every chunk element is
+addressed by (image, coordinate, direction) indices; the shift
+``(extreme - current) * shift_size`` and the one-hot delta are built on the
+device.
+
+Two sweeps give the same records:
+
+* block-resume (the default): perturbations are grouped by generator
+  block, and synthesis restarts at that block from each image's cached
+  block-entry state, so upstream blocks are never recomputed; each block's
+  states are freed once its group is done;
+* flat: every perturbation runs the whole generator.
+
+The whole path runs the generator's literal resample graph (bilinear
+upsample, blur) through the package's CUDA kernels on the GPU.
+
+The records keep the JAX package's layout (NHWC images, the same shapes)
+and the reference's ``style_change_records.hdf5`` schema.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from stylex_tpu_torch.config import Arch
+from stylex_tpu_torch.device import resolve_dtype, set_float32_precision
+from stylex_tpu_torch.models.stylex import StylEx, make_w
+from stylex_tpu_torch.ops.latents import expand_styles
+
+__all__ = [
+    "AttFindRecords",
+    "attfind_extraction",
+    "find_discriminator_threshold",
+    "save_records_hdf5",
+    "load_records_hdf5",
+]
+
+Classify = Callable[[torch.Tensor], torch.Tensor]
+
+
+@dataclasses.dataclass
+class AttFindRecords:
+    """In-memory mirror of ``style_change_records.hdf5``."""
+
+    style_change: np.ndarray  # (N, 2, C, num_classes): [image, direction(min/max), sindex, class]
+    latents: np.ndarray  # (N, latent_dim)
+    base_prob: np.ndarray  # (N, num_classes) classifier logits of the base generated image
+    minima: np.ndarray  # (C,)
+    maxima: np.ndarray  # (C,)
+    style_coordinates: np.ndarray  # (N, C)
+    original_images: np.ndarray  # (N, S, S, 3)
+    noise: np.ndarray  # (1, S, S, 1)
+    discriminator: np.ndarray  # (N, 1)
+    # seconds from the start of the extraction to the end of each stage
+    # (not written to the hdf5: the reference schema has no such dataset)
+    stage_walls: Optional[Dict[str, float]] = None
+
+
+def _phase1(model: StylEx, classify: Classify, images, noise, capture: bool):
+    """Encode -> w -> generate (+ coords, + block states) -> D score -> base logits."""
+    cfg = model.cfg
+    w = make_w(cfg, model.encode(images), classify(images))
+    out = model.generate(expand_styles(w, model.num_layers), noise, capture_states=capture)
+    gen, coords = out[0], out[1]
+    base_logits = classify(gen)
+    if cfg.arch == Arch.NEW:
+        d = model.discriminate(gen, torch.softmax(base_logits, dim=-1))
+    else:
+        d = model.discriminate(gen)
+    return w, coords, d, base_logits, (out[2] if capture else None)
+
+
+def _cat_states(parts: List[list]) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """Per-batch lists of per-block (x, rgb) -> per-block batch-concatenated."""
+    return [
+        (torch.cat([p[k][0] for p in parts]),
+         None if parts[0][k][1] is None else torch.cat([p[k][1] for p in parts]))
+        for k in range(len(parts[0]))
+    ]
+
+
+def _capture_states(model: StylEx, w_all, noise, batch: int):
+    """Block-entry states of every image, one generator forward per batch."""
+    parts = []
+    for start in range(0, w_all.shape[0], batch):
+        w = w_all[start:start + batch]
+        parts.append(model.generate(expand_styles(w, model.num_layers), noise,
+                                    capture_states=True)[2])
+    return _cat_states(parts)
+
+
+def _sweep_chunk(model: StylEx, classify: Classify, w_all, noise, coords_all, minima,
+                 maxima, base_all, img_idx, coord_idx, is_max, shift_size: float,
+                 start_block: int = 0, states=None):
+    """Classifier logit changes of one chunk of perturbations."""
+    extreme = torch.where(is_max, maxima[coord_idx], minima[coord_idx])
+    shift = (extreme - coords_all[img_idx, coord_idx]) * shift_size
+    deltas = torch.zeros(coord_idx.shape[0], model.total_style_coords,
+                         dtype=w_all.dtype, device=w_all.device)
+    deltas.scatter_(1, coord_idx[:, None], shift[:, None])
+    initial_state = None
+    if states is not None:
+        x_st, rgb_st = states
+        initial_state = (x_st[img_idx], None if rgb_st is None else rgb_st[img_idx])
+    gen, _ = model.generate(
+        expand_styles(w_all[img_idx], model.num_layers), noise, style_delta=deltas,
+        start_block=start_block, initial_state=initial_state,
+    )
+    return classify(gen) - base_all[img_idx]
+
+
+def _sweep_ids(n_images: int, offset: int, size: int, device):
+    """(image, coordinate, is_max) of every perturbation, in
+    (image, direction, coordinate) order, so the effects reshape straight
+    into style_change's (N, 2, size) layout."""
+    img = torch.arange(n_images, device=device).repeat_interleave(2 * size)
+    is_max = torch.tensor([False, True], device=device).repeat_interleave(size).repeat(n_images)
+    coord = torch.arange(offset, offset + size, device=device).repeat(2 * n_images)
+    return img, coord, is_max
+
+
+def _to_nchw(images: np.ndarray, device, dtype) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2))).to(device, dtype)
+
+
+@torch.no_grad()
+def attfind_extraction(
+    model: StylEx,
+    classifier_fn: Classify,
+    images: np.ndarray,
+    noise: np.ndarray,
+    shift_size: float = 1.0,
+    discriminator_threshold: Optional[float] = None,
+    use_discriminator: bool = False,
+    coord_batch: int = 512,
+    phase1_batch: int = 64,
+    progress: bool = True,
+    block_resume: bool = True,
+    num_images: Optional[int] = None,
+    compute_dtype=None,
+) -> AttFindRecords:
+    """Run the full AttFind extraction over a set of images.
+
+    It runs on the device that holds ``model``.
+
+    Args:
+      model: the StylEx bundle; its weights must be in ``compute_dtype``.
+      classifier_fn: (B, 3, S, S) images in [0, 1] -> (B, num_classes)
+        logits, e.g. ``ClassifierBundle.classify_images`` with its weights
+        in ``compute_dtype``.
+      images: (P, S, S, 3) candidate images in [0, 1], NHWC. With
+        ``use_discriminator``, pass more than ``num_images``: the first
+        ``num_images`` survivors are kept.
+      noise: (1, S, S, 1) fixed noise image shared by every forward.
+      shift_size: multiplier on the (extreme - current) shifts.
+      discriminator_threshold: keep images whose D score is below it.
+      coord_batch: perturbations per chunk.
+      phase1_batch: images per phase-1 forward.
+      block_resume: resume synthesis at the perturbed block from cached
+        per-image block states (same records as the flat sweep).
+      num_images: cap on the images that enter the sweep, after the filter.
+      compute_dtype: float32 (default) or bfloat16. Records are float32.
+
+    Returns:
+      :class:`AttFindRecords`; ``stage_walls`` holds the time at the end of
+      each stage (the device is synchronised at each stage's end).
+    """
+    cfg = model.cfg
+    dtype = resolve_dtype(compute_dtype)
+    param = next(model.parameters())
+    if param.dtype != dtype:
+        raise ValueError(f"model weights are {param.dtype}, compute dtype is {dtype}: "
+                         "cast the model (and classifier) with .to(dtype) first")
+    device = param.device
+    if dtype == torch.float32:
+        set_float32_precision()
+    t0 = time.perf_counter()
+    stage_walls: Dict[str, float] = {}
+
+    def mark(tag: str) -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        stage_walls[tag] = time.perf_counter() - t0
+        if progress:
+            print(f"attfind[{tag}] +{stage_walls[tag]:.1f}s", flush=True)
+
+    images = np.asarray(images, np.float32)
+    P = images.shape[0]
+    noise_t = torch.from_numpy(np.asarray(noise, np.float32)).to(device, dtype)
+    use_filter = use_discriminator and discriminator_threshold is not None
+    capture = block_resume and not use_filter
+
+    # ---- phase 1: batched over images
+    parts = []
+    for start in range(0, P, phase1_batch):
+        chunk = _to_nchw(images[start:start + phase1_batch], device, dtype)
+        parts.append(_phase1(model, classifier_fn, chunk, noise_t, capture))
+    w_all, coords_all, d_all, base_all = (torch.cat([p[i] for p in parts]) for i in range(4))
+    states = _cat_states([p[4] for p in parts]) if capture else None
+    del parts
+    mark("phase1")
+
+    keep = np.arange(P)
+    if use_filter:
+        keep = np.flatnonzero(d_all.float().cpu().numpy() < discriminator_threshold)
+        if keep.size == 0:
+            raise ValueError("No images pass the threshold check")
+    if num_images is not None:
+        if keep.size < num_images:
+            print(f"attfind: only {keep.size} of the requested {num_images} images "
+                  f"survive the discriminator filter; pass a larger candidate pool")
+        keep = keep[:num_images]
+    N = int(keep.size)
+    if use_filter:
+        idx = torch.from_numpy(keep).to(device)
+        w_all, coords_all, d_all, base_all = (t[idx] for t in (w_all, coords_all, d_all, base_all))
+        mark("discriminator_filter")
+    else:
+        w_all, coords_all, d_all, base_all = (t[:N] for t in (w_all, coords_all, d_all, base_all))
+    # elementwise min/max over the images that enter the sweep
+    minima = coords_all.min(dim=0).values
+    maxima = coords_all.max(dim=0).values
+
+    def run_sweep(total, ids, start_block=0, block_states=None):
+        img, coord, is_max = ids
+        effects = [
+            _sweep_chunk(model, classifier_fn, w_all, noise_t, coords_all, minima, maxima,
+                         base_all, img[s:s + coord_batch], coord[s:s + coord_batch],
+                         is_max[s:s + coord_batch], shift_size, start_block, block_states)
+            for s in range(0, total, coord_batch)
+        ]
+        return torch.cat(effects).float().cpu().numpy()
+
+    C = model.total_style_coords
+    if block_resume:
+        if states is None:
+            states = _capture_states(model, w_all, noise_t, phase1_batch)
+        else:
+            states = [(x[:N], None if rgb is None else rgb[:N]) for x, rgb in states]
+        mark("capture_states")
+        per_block = []
+        offset = 0
+        for k, (in_chan, out_chan) in enumerate(model.G.block_dims):
+            size = in_chan + out_chan
+            eff = run_sweep(N * 2 * size, _sweep_ids(N, offset, size, device), k, states[k])
+            per_block.append(eff.reshape(N, 2, size, -1))
+            # block k's states are dead once its group is done
+            states[k] = None
+            offset += size
+            mark(f"block{k}")
+        style_change = np.concatenate(per_block, axis=2)
+    else:
+        eff = run_sweep(N * 2 * C, _sweep_ids(N, 0, C, device))
+        style_change = eff.reshape(N, 2, C, -1)
+        mark("sweep")
+
+    host = lambda t: t.float().cpu().numpy()
+    records = AttFindRecords(
+        style_change=style_change.astype(np.float32),
+        latents=host(w_all),
+        base_prob=host(base_all),
+        minima=host(minima),
+        maxima=host(maxima),
+        style_coordinates=host(coords_all),
+        original_images=images[keep],
+        noise=np.asarray(noise, np.float32),
+        discriminator=host(d_all)[:, None],
+        stage_walls=stage_walls,
+    )
+    mark("records_fetch")
+    return records
+
+
+@torch.no_grad()
+def find_discriminator_threshold(model: StylEx, classifier_fn: Classify, images: np.ndarray,
+                                 noise: np.ndarray, phase1_batch: int = 64) -> np.ndarray:
+    """D scores of the encoder-reconstructed images, used to pick a realism
+    threshold. Runs on the device and in the dtype of ``model``."""
+    param = next(model.parameters())
+    noise_t = torch.from_numpy(np.asarray(noise, np.float32)).to(param.device, param.dtype)
+    images = np.asarray(images, np.float32)
+    outs = []
+    for start in range(0, images.shape[0], phase1_batch):
+        chunk = _to_nchw(images[start:start + phase1_batch], param.device, param.dtype)
+        outs.append(_phase1(model, classifier_fn, chunk, noise_t, False)[2].float().cpu().numpy())
+    return np.concatenate(outs)
+
+
+# ---------------------------------------------------------------- records IO
+
+
+def save_records_hdf5(records: AttFindRecords, path: str) -> str:
+    """Write ``style_change_records.hdf5`` with the reference's dataset
+    names and shapes. Images are stored NCHW to match."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        f.create_dataset("style_change", data=records.style_change.astype("f4"))
+        f.create_dataset("latents", data=records.latents.astype("f4"))
+        f.create_dataset("base_prob", data=records.base_prob.astype("f4"))
+        f.create_dataset("minima", data=records.minima[None].astype("f4"))
+        f.create_dataset("maxima", data=records.maxima[None].astype("f4"))
+        f.create_dataset("style_coordinates", data=records.style_coordinates.astype("f4"))
+        f.create_dataset(
+            "original_images", data=records.original_images.transpose(0, 3, 1, 2).astype("f4")
+        )
+        f.create_dataset("noise", data=records.noise.astype("f4"))
+        f.create_dataset("discriminator", data=records.discriminator.astype("f4"))
+    return path
+
+
+def load_records_hdf5(path: str) -> AttFindRecords:
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return AttFindRecords(
+            style_change=np.array(f["style_change"]),
+            latents=np.array(f["latents"]),
+            base_prob=np.array(f["base_prob"]),
+            minima=np.array(f["minima"])[0],
+            maxima=np.array(f["maxima"])[0],
+            style_coordinates=np.array(f["style_coordinates"]),
+            original_images=np.array(f["original_images"]).transpose(0, 2, 3, 1),
+            noise=np.array(f["noise"]),
+            discriminator=np.array(f["discriminator"]),
+        )

@@ -1,0 +1,116 @@
+"""Build and load the package's CUDA kernels.
+
+Each ``*.cu`` file here is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+a shared library with a plain C interface, under ``build/stylex_tpu_torch/``
+at the root of the checkout, named by a hash of its source and flags: a
+changed source builds anew, an unchanged one is loaded as built. Missing
+libraries are built in parallel, one ``nvcc`` per source, all started
+together. Nothing is compiled or loaded when this module is imported.
+
+Every C entry point has the signature
+``int fn(const void* x, void* y, long long planes, int h, int w,
+int max_blocks, int device, void* stream)`` and returns
+``cudaGetLastError()`` after its launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+__all__ = ["KERNELS", "build", "load", "library_path"]
+
+_HERE = Path(__file__).resolve().parent
+BUILD_DIR = _HERE.parents[1] / "build" / "stylex_tpu_torch"
+
+# kernel name -> (source file, exported C functions)
+KERNELS: Dict[str, tuple] = {
+    "upsample2x_bilinear": ("upsample2x_bilinear.cu",
+                            ("upsample2x_bilinear_f32", "upsample2x_bilinear_bf16")),
+    "blur3": ("blur3.cu", ("blur3_f32", "blur3_bf16")),
+}
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where the library of kernel ``name`` is (or will be) built."""
+    src = _HERE / KERNELS[name][0]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> Dict[str, Path]:
+    """Compile every named kernel whose library is missing, all in parallel.
+
+    Returns kernel name -> library path. Raises ``RuntimeError`` with the
+    compiler's output if any build fails. ``verbose`` prints what ``nvcc``
+    reports (registers, shared memory, spills for each kernel).
+    """
+    names = list(KERNELS if names is None else names)
+    paths = {n: library_path(n) for n in names}
+    todo = [n for n in names if not paths[n].exists()]
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for n in todo:
+        # build to a private name, then rename: a concurrent build never
+        # sees a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_HERE / KERNELS[n][0])]
+        procs.append((n, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for n, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
+            os.unlink(tmp)
+            continue
+        os.replace(tmp, paths[n])
+        if verbose:
+            print(f"[nvcc {n}]\n{out.strip()}", flush=True)
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        for fn in KERNELS[name][1]:
+            getattr(lib, fn).argtypes = _ARGTYPES
+            getattr(lib, fn).restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib

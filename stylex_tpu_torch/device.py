@@ -1,0 +1,52 @@
+"""Device resolution and the float32 precision policy.
+
+Entry points run on the GPU unless the caller asks for the CPU: with no GPU
+and no explicit ``device="cpu"`` they raise instead of carrying on slowly on
+the host.
+
+The float32 path computes in full float32, as the JAX package and the
+reference notebook do. PyTorch's default lets cuDNN run float32
+convolutions in TF32 (about three decimal digits), so
+:func:`set_float32_precision` turns TF32 off for both cuDNN and matmuls.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+__all__ = ["resolve_device", "set_float32_precision", "resolve_dtype"]
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """``None`` means the GPU; an explicit device is taken as given.
+
+    Raises ``RuntimeError`` when the GPU is asked for (explicitly or by
+    default) and none is available.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the host"
+        )
+    return dev
+
+
+def resolve_dtype(dtype: Union[None, str, torch.dtype]) -> torch.dtype:
+    """``None``/``"float32"`` -> float32, ``"bfloat16"`` -> bfloat16."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        out = dtype
+    else:
+        out = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(str(dtype))
+    if out not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype!r}")
+    return out
+
+
+def set_float32_precision() -> None:
+    """Compute float32 convolutions and matmuls in full float32 (TF32 off)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

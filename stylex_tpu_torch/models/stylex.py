@@ -1,0 +1,113 @@
+"""The StylEx bundle: encoder + mapping + generator + discriminator.
+
+One ``nn.Module`` whose submodules and state-dict keys are the reference
+checkpoint's: ``encoder``, ``S``, ``G``, ``D`` and the EMA copies ``SE`` and
+``GE``. A reference ``{'StylEx': state_dict}`` checkpoint therefore loads
+with ``load_state_dict`` (see :mod:`stylex_tpu_torch.models.convert`).
+
+:func:`make_w` / :func:`prior_w` cover both architectures:
+
+* OLD: w = [E(x); classifier logits], mapping width = latent_dim;
+* NEW: w = [E(x); softmax(logits)], and prior samples [S(z); probabilities]
+  with mapping width latent_dim - num_classes.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from stylex_tpu_torch.config import Arch, ModelConfig
+from stylex_tpu_torch.device import resolve_device
+from stylex_tpu_torch.models.discriminator import DiscriminatorE
+from stylex_tpu_torch.models.generator import Conv2DMod, Generator
+from stylex_tpu_torch.models.layers import Conv2d, EqualLinear, Linear
+from stylex_tpu_torch.models.mapping import StyleVectorizer
+
+__all__ = ["StylEx", "build_stylex", "make_w", "prior_w"]
+
+_SEEDED = (Linear, Conv2d, EqualLinear, Conv2DMod, Generator)
+
+
+class StylEx(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.encoder_class is not None:
+            raise NotImplementedError("debug encoders are not ported yet")
+        self.cfg = cfg
+
+        def trunk(mode):
+            return DiscriminatorE(
+                cfg.image_size, cfg.network_capacity, cfg.attn_layers, cfg.transparent,
+                mode=mode, encoder_dim=cfg.encoder_dim, num_classes=cfg.num_classes,
+                fmap_max=cfg.fmap_max, fq_layers=cfg.fq_layers,
+            )
+
+        def generator():
+            return Generator(cfg.image_size, cfg.latent_dim, cfg.network_capacity,
+                             cfg.transparent, cfg.attn_layers, cfg.no_const, cfg.fmap_max)
+
+        self.encoder = trunk("encoder")
+        self.S = StyleVectorizer(cfg.mapping_dim, cfg.style_depth, lr_mul=cfg.lr_mlp)
+        self.G = generator()
+        self.D = trunk("cond_disc" if cfg.arch == Arch.NEW else "disc")
+        self.SE = StyleVectorizer(cfg.mapping_dim, cfg.style_depth, lr_mul=cfg.lr_mlp)
+        self.GE = generator()
+
+    @property
+    def num_layers(self) -> int:
+        return self.G.num_layers
+
+    @property
+    def total_style_coords(self) -> int:
+        return self.G.total_style_coords
+
+    def encode(self, images: torch.Tensor) -> torch.Tensor:
+        return self.encoder(images)
+
+    def map_z(self, z: torch.Tensor, ema: bool = False) -> torch.Tensor:
+        return (self.SE if ema else self.S)(z)
+
+    def generate(self, w_styles, noise, style_delta=None, ema: bool = False,
+                 start_block: int = 0, initial_state=None, capture_states: bool = False):
+        return (self.GE if ema else self.G)(
+            w_styles, noise, style_delta, start_block, initial_state, capture_states
+        )
+
+    def discriminate(self, images: torch.Tensor,
+                     probabilities: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.D(images, probabilities)
+
+
+def build_stylex(cfg: ModelConfig, seed: int = 0, device=None) -> StylEx:
+    """A StylEx with the reference's init drawn from ``seed``; the EMA
+    copies start equal to the live nets. Placed on ``device`` (the GPU
+    unless ``'cpu'``)."""
+    device = resolve_device(device)
+    model = StylEx(cfg)
+    generator = torch.Generator().manual_seed(seed)
+    for m in (model.encoder, model.S, model.G, model.D):
+        for sub in m.modules():
+            if isinstance(sub, _SEEDED):
+                sub.reset_parameters(generator)
+    model.SE.load_state_dict(model.S.state_dict())
+    model.GE.load_state_dict(model.G.state_dict())
+    return model.to(device).eval()
+
+
+def make_w(cfg: ModelConfig, encoder_output: torch.Tensor,
+           classifier_logits: torch.Tensor) -> torch.Tensor:
+    """Encoder-path w: the encoding concatenated with the conditioning."""
+    cond = torch.softmax(classifier_logits, dim=-1) if cfg.arch == Arch.NEW else classifier_logits
+    return torch.cat([encoder_output, cond], dim=-1)
+
+
+def prior_w(cfg: ModelConfig, s_out: torch.Tensor,
+            probabilities: Optional[torch.Tensor]) -> torch.Tensor:
+    """Prior-path w: OLD maps the full latent through S; NEW appends the
+    probabilities after S."""
+    if cfg.arch == Arch.NEW:
+        return torch.cat([s_out, probabilities], dim=-1)
+    return s_out

@@ -1,0 +1,129 @@
+"""Device-time breakdown of one AttFind sweep chunk on the GPU.
+
+    python -m stylex_tpu_torch.profile_sweep [--start-block 0]
+        [--out chiprun_out/profile_sweep.json]
+
+Builds the 64px config in bfloat16 (random weights from seed 0,
+MobileNetV2), runs phase 1 for 4 synthetic images, then times one sweep
+chunk of 616 perturbations (the size ``chip_smoke.py`` runs) with CUDA
+events (median of 5 runs of 10 chunks, after warm-up) and traces 3 chunks
+with ``torch.profiler``. Prints the device time per kernel name (per
+chunk), the device's busy share of the traced window, and the share of the
+package's own kernels. ``--start-block k`` profiles a block-resume chunk
+(resumed from block k's cached states); 0 is the flat sweep's chunk.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--start-block", type=int, default=0)
+    p.add_argument("--top", type=int, default=25)
+    p.add_argument("--out", default=None, help="write the table as JSON here")
+    args = p.parse_args(argv)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stylex_tpu_torch.attfind.extraction import _phase1, _sweep_chunk
+    from stylex_tpu_torch.config import ModelConfig
+    from stylex_tpu_torch.data import SyntheticImageDataset
+    from stylex_tpu_torch.device import resolve_device
+    from stylex_tpu_torch.models import build_classifier, build_stylex
+    from stylex_tpu_torch.ops.latents import image_noise
+
+    device = resolve_device(None)
+    dtype = torch.bfloat16
+    cfg = ModelConfig()
+    model = build_stylex(cfg, seed=0, device=device).to(dtype)
+    clf = build_classifier("mobilenet", cfg.image_size, seed=0, device=device).to(dtype)
+    n_img, cb = 4, 616
+    ds = SyntheticImageDataset(n_img, cfg.image_size)
+    images = torch.from_numpy(np.stack([ds[i] for i in range(n_img)]).transpose(0, 3, 1, 2).copy())
+    noise = image_noise(torch.Generator().manual_seed(42), 1, cfg.image_size).to(device, dtype)
+
+    with torch.no_grad():
+        w, coords, _, base, states = _phase1(model, clf.classify_images,
+                                             images.to(device, dtype), noise, True)
+        mins, maxs = coords.min(0).values, coords.max(0).values
+        ar = torch.arange(cb, device=device)
+        lo = sum(i + o for i, o in model.G.block_dims[:args.start_block])
+        size = sum(model.G.block_dims[args.start_block])
+        img, coord, is_max = ar % n_img, lo + ar % size, ar % 2 == 1
+        block_states = states[args.start_block] if args.start_block > 0 else None
+
+        def chunk():
+            return _sweep_chunk(model, clf.classify_images, w, noise, coords, mins, maxs, base,
+                                img, coord, is_max, 1.0, args.start_block, block_states)
+
+        for _ in range(3):
+            chunk()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                chunk()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 10)
+        chunk_ms = statistics.median(times)
+
+        reps = 3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                chunk()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+
+    # the device's own events (kernels, copies, memsets) only: the operator
+    # events that launch them carry the same time again
+    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    per_name = {}
+    for e in device_events:
+        us, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    rows = [dict(name=k, ms_per_chunk=us / 1e3 / reps, calls_per_chunk=n / reps)
+            for k, (us, n) in per_name.items()]
+    rows.sort(key=lambda r: -r["ms_per_chunk"])
+    device_ms = sum(r["ms_per_chunk"] for r in rows)
+    # busy: the union of the device events' intervals, over the wall window
+    busy_us, last_end = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in device_events):
+        busy_us += max(0.0, end - max(start, last_end))
+        last_end = max(last_end, end)
+    busy_share = busy_us / 1e3 / window_ms
+    ours = {k: sum(r["ms_per_chunk"] for r in rows if f"{k}_kernel" in r["name"])
+            for k in ("upsample2x_bilinear", "blur3")}
+    card = torch.cuda.get_device_name(device)
+    print(f"{card} | bfloat16 | coord_batch {cb} | start_block {args.start_block}")
+    print(f"chunk: {chunk_ms:.4f} ms (CUDA events) = {cb / chunk_ms * 1e3:.1f} styles/s; "
+          f"traced device time {device_ms:.4f} ms/chunk over {len(device_events)} device "
+          f"events; device busy {busy_share:.3f} of the traced window")
+    for k, v in ours.items():
+        print(f"  {k}: {v:.4f} ms/chunk ({v / device_ms if device_ms else 0:.3f} of device time)")
+    for r in rows[:args.top]:
+        print(f"  {r['ms_per_chunk']:9.4f} ms  x{r['calls_per_chunk']:5.1f}  {r['name'][:110]}")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(dict(
+            card=card, dtype="bfloat16", coord_batch=cb, start_block=args.start_block,
+            chunk_ms=chunk_ms, device_ms_per_chunk=device_ms,
+            busy_share=busy_share, ours_ms_per_chunk=ours, rows=rows,
+        ), indent=1))
+
+
+if __name__ == "__main__":
+    main()

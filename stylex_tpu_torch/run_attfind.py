@@ -1,0 +1,115 @@
+"""AttFind CLI: extraction, ranking and records for a trained StylEx.
+
+    python -m stylex_tpu_torch.run_attfind \\
+        --checkpoint models/plants/model_100.pt \\
+        --config models/plants/.config.json \\
+        --classifier-name mobilenet --classifier-path mobilenet_plants.pt \\
+        --data ./data/plants --num-images 250 --dtype bfloat16
+
+Loads a reference-layout StylEx checkpoint (``{'StylEx': state_dict}``) and
+a torchvision-layout classifier state_dict, runs the StyleSpace sweep on the
+GPU (``--device cpu`` runs it on the host), writes
+``style_change_records.hdf5`` (the reference schema) and ``top_styles.json``
+to ``--results-folder``, and prints the ranked (direction, sindex) pairs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description="StylEx AttFind attribute discovery (PyTorch)")
+    p.add_argument("--checkpoint", required=True, help="reference-layout StylEx .pt")
+    p.add_argument("--config", required=True, help="the model's .config.json")
+    p.add_argument("--data", default="./data")
+    p.add_argument("--dataset-name", default=None, help="'synthetic' for generated images")
+    p.add_argument("--classifier-name", default="resnet", choices=["resnet", "mobilenet"])
+    p.add_argument("--classifier-path", default=None,
+                   help="torchvision-layout state_dict of the classifier")
+    p.add_argument("--num-images", type=int, default=250)
+    p.add_argument("--num-indices", type=int, default=5)
+    p.add_argument("--shift-size", type=float, default=1.0)
+    p.add_argument("--effect-threshold", type=float, default=0.5)
+    p.add_argument("--discriminator-threshold", type=float, default=None)
+    p.add_argument("--use-discriminator", action="store_true")
+    p.add_argument("--coord-batch", type=int, default=512)
+    p.add_argument("--no-block-resume", action="store_true",
+                   help="use the flat full-recompute sweep")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
+                   help="sweep compute dtype; records are float32 either way")
+    p.add_argument("--device", default=None, help="default: the GPU")
+    p.add_argument("--results-folder", default="./attfind_results")
+    p.add_argument("--seed", type=int, default=42)
+    args = p.parse_args(argv)
+    if args.use_discriminator and args.discriminator_threshold is None:
+        p.error("--use-discriminator needs --discriminator-threshold "
+                "(the reference uses -0.5 for the plant model)")
+
+    from stylex_tpu_torch.attfind import attfind_extraction, rank_styles, save_records_hdf5
+    from stylex_tpu_torch.config import ModelConfig
+    from stylex_tpu_torch.data import FolderDataset, SyntheticImageDataset
+    from stylex_tpu_torch.device import resolve_device, resolve_dtype
+    from stylex_tpu_torch.models import build_classifier
+    from stylex_tpu_torch.models.convert import load_reference_checkpoint
+    from stylex_tpu_torch.models.stylex import StylEx
+    from stylex_tpu_torch.ops.latents import image_noise
+
+    device = resolve_device(args.device)
+    dtype = resolve_dtype(args.dtype)
+    cfg = ModelConfig.from_json(Path(args.config).read_text())
+    model = StylEx(cfg)
+    model.load_state_dict(load_reference_checkpoint(args.checkpoint))
+    model = model.to(device, dtype).eval()
+    clf = build_classifier(args.classifier_name, cfg.image_size, cfg.num_classes,
+                           checkpoint_path=args.classifier_path, device=device).to(dtype)
+
+    if args.dataset_name == "synthetic":
+        ds = SyntheticImageDataset(args.num_images, cfg.image_size)
+    else:
+        ds = FolderDataset(args.data, cfg.image_size)
+    n = min(args.num_images, len(ds))
+    # with the D filter, over-sample candidates so the sweep still gets n survivors
+    pool = min(4 * n, len(ds)) if args.use_discriminator else n
+    images = np.stack([ds[i] for i in range(pool)])
+    # the fixed noise image shared by every forward
+    noise = image_noise(torch.Generator().manual_seed(args.seed), 1, cfg.image_size).numpy()
+
+    t0 = time.perf_counter()
+    records = attfind_extraction(
+        model, clf.classify_images, images, noise,
+        shift_size=args.shift_size,
+        discriminator_threshold=args.discriminator_threshold,
+        use_discriminator=args.use_discriminator,
+        num_images=n,
+        coord_batch=args.coord_batch,
+        block_resume=not args.no_block_resume,
+        compute_dtype=dtype,
+    )
+    dt = time.perf_counter() - t0
+    total = records.style_change.shape[0] * 2 * records.style_change.shape[2]
+    print(f"AttFind sweep: {total} perturbed forwards in {dt:.3f}s = {total / dt:.1f} styles/s "
+          f"on {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
+
+    out = Path(args.results_folder)
+    out.mkdir(parents=True, exist_ok=True)
+    save_records_hdf5(records, str(out / "style_change_records.hdf5"))
+    ranked, per_class = rank_styles(records, num_classes=cfg.num_classes,
+                                    num_indices=args.num_indices,
+                                    effect_threshold=args.effect_threshold)
+    print("Directions and style indices for moving from class 1 to class 0 =",
+          ranked[: args.num_indices])
+    print("Use the other direction to move from class 0 to 1.")
+    (out / "top_styles.json").write_text(json.dumps(
+        {"ranked": ranked, "per_class": {str(k): v for k, v in per_class.items()}}
+    ))
+
+
+if __name__ == "__main__":
+    main()

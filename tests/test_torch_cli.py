@@ -1,0 +1,130 @@
+"""The port's configuration, data, StyleSpace helpers, checkpoint reader and
+AttFind CLI, on the CPU: each against the JAX package's counterpart where
+there is one (exact equality: both sides run the same numpy / PIL code or
+integer arithmetic), and the CLI end to end at the tiny config."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from stylex_tpu.attfind import load_records_hdf5 as j_load_records
+from stylex_tpu.config import Arch as JArch, ModelConfig as JModelConfig
+from stylex_tpu.data import dataset as j_dataset
+from stylex_tpu.data.mnist import SyntheticImageDataset as JSynthetic
+from stylex_tpu.models import discriminator as j_disc
+from stylex_tpu.models import generator as j_gen
+from stylex_tpu_torch import run_attfind
+from stylex_tpu_torch.config import Arch, ModelConfig
+from stylex_tpu_torch.data import FolderDataset, SyntheticImageDataset
+from stylex_tpu_torch.models import build_classifier, build_stylex, discriminator_filters
+from stylex_tpu_torch.models import generator as t_gen
+from stylex_tpu_torch.models.convert import load_reference_checkpoint
+from stylex_tpu_torch.models.stylex import StylEx
+
+torch.set_num_threads(2)
+
+TINY = dict(image_size=16, network_capacity=4, latent_dim=34, encoder_dim=32)
+
+
+@pytest.mark.parametrize("arch", ["old", "new"])
+def test_config_json_round_trips_with_jax(arch):
+    cfg = ModelConfig(arch=Arch(arch), attn_layers=(1,), fq_layers=(2, 3), **TINY)
+    jcfg = JModelConfig.from_json(cfg.to_json())
+    assert json.loads(jcfg.to_json()) == json.loads(cfg.to_json())
+    assert jcfg.arch == JArch(arch) and jcfg.mapping_dim == cfg.mapping_dim
+    assert ModelConfig.from_json(JModelConfig(**TINY).to_json()) == ModelConfig(**TINY)
+
+
+@pytest.mark.parametrize("size,cap", [(16, 4), (32, 8), (64, 16), (256, 16)])
+def test_style_space_layout_matches_jax(size, cap):
+    assert t_gen.generator_filters(size, cap) == j_gen.generator_filters(size, cap)
+    assert t_gen.style_coord_dims(size, cap) == j_gen.style_coord_dims(size, cap)
+    assert discriminator_filters(size, cap) == j_disc.discriminator_filters(size, cap)
+    total = t_gen.num_style_coords(size, cap)
+    assert total == j_gen.num_style_coords(size, cap)
+    if (size, cap) == (64, 16):
+        assert total == 2464
+    for s in range(0, total, 7):
+        assert (t_gen.sindex_to_block_and_offset(s, size, cap)
+                == j_gen.sindex_to_block_and_offset(s, size, cap))
+    with pytest.raises(IndexError):
+        t_gen.sindex_to_block_and_offset(total, size, cap)
+
+
+def test_synthetic_dataset_matches_jax():
+    for seed in (0, 3):
+        ours, theirs = SyntheticImageDataset(5, 16, seed=seed), JSynthetic(5, 16, seed=seed)
+        assert len(ours) == len(theirs)
+        for i in range(5):
+            np.testing.assert_array_equal(ours[i], theirs[i])
+
+
+@pytest.mark.parametrize("aug_prob", [0.0, 1.0])
+def test_folder_dataset_matches_jax(tmp_path, monkeypatch, aug_prob):
+    from PIL import Image
+
+    from stylex_tpu import native
+
+    # the JAX package's PIL path: its optional C++ resize is another
+    # implementation of the same transform
+    monkeypatch.setattr(native, "available", lambda: False)
+    rng = np.random.RandomState(0)
+    (tmp_path / "sub").mkdir()
+    for name, size, mode in (("a.png", (40, 24), "RGB"), ("sub/b.jpg", (18, 30), "RGB"),
+                             ("c.png", (10, 12), "L")):
+        shape = size[::-1] + ((3,) if mode == "RGB" else ())
+        Image.fromarray(rng.randint(0, 256, shape).astype(np.uint8), mode).save(tmp_path / name)
+    ours = FolderDataset(str(tmp_path), 16, aug_prob=aug_prob, seed=1)
+    theirs = j_dataset.FolderDataset(str(tmp_path), 16, aug_prob=aug_prob, seed=1)
+    assert ours.paths == theirs.paths
+    for i in range(len(ours)):
+        got = ours[i]
+        assert got.shape == (16, 16, 3) and got.dtype == np.float32
+        np.testing.assert_array_equal(got, theirs[i])
+
+
+def test_reference_checkpoint_loads_and_drops_non_model_keys(tmp_path):
+    cfg = ModelConfig(**TINY)
+    sd = build_stylex(cfg, seed=3, device="cpu").state_dict()
+    extra = {
+        "D_aug.D.fc.weight": torch.zeros(1),
+        "G.blocks.1.to_rgb.upsample.1.f": torch.ones(1, 3),
+        "D.blocks.0.downsample.0.f": torch.ones(1, 3),
+    }
+    path = tmp_path / "model_1.pt"
+    torch.save({"StylEx": {**sd, **extra}, "version": 1}, path)
+    loaded = load_reference_checkpoint(str(path))
+    assert set(loaded) == set(sd)
+    model = StylEx(cfg)
+    model.load_state_dict(loaded)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+    torch.save(sd, tmp_path / "bare.pt")
+    assert set(load_reference_checkpoint(str(tmp_path / "bare.pt"))) == set(sd)
+
+
+@pytest.mark.parametrize("resume", [True, False])
+def test_cli_runs_attfind_on_cpu(tmp_path, capsys, resume):
+    cfg = ModelConfig(**TINY)
+    ckpt, config = tmp_path / "model_1.pt", tmp_path / ".config.json"
+    torch.save({"StylEx": build_stylex(cfg, seed=2, device="cpu").state_dict()}, ckpt)
+    config.write_text(cfg.to_json())
+    clf_path = tmp_path / "mobilenet.pt"
+    torch.save(build_classifier("mobilenet", 16, seed=2, device="cpu").net.state_dict(), clf_path)
+    out = tmp_path / "results"
+    argv = ["--checkpoint", str(ckpt), "--config", str(config),
+            "--classifier-name", "mobilenet", "--classifier-path", str(clf_path),
+            "--dataset-name", "synthetic", "--num-images", "2", "--coord-batch", "64",
+            "--effect-threshold", "0.0", "--device", "cpu", "--results-folder", str(out)]
+    run_attfind.main(argv + ([] if resume else ["--no-block-resume"]))
+    assert "styles/s on cpu" in capsys.readouterr().out
+    rec = j_load_records(str(out / "style_change_records.hdf5"))
+    C = t_gen.num_style_coords(16, 4)
+    assert rec.style_change.shape == (2, 2, C, 2)
+    assert np.isfinite(rec.style_change).all()
+    np.testing.assert_array_equal(rec.original_images,
+                                  np.stack([SyntheticImageDataset(2, 16)[i] for i in range(2)]))
+    top = json.loads((out / "top_styles.json").read_text())
+    assert top["ranked"] and all(d in (0, 1) and 0 <= s < C for d, s in top["ranked"])

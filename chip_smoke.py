@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero:
 1. Device and build: needs CUDA; prints the card's name and power limit;
    builds every CUDA kernel of the package from its sources.
 2. Each kernel against its plain PyTorch version on the card, float32 and
-   bfloat16, at the shapes the AttFind main path gives it (plus one
-   256px-scale upsample): max abs error against the stated tolerance, and
+   bfloat16, at the shapes the AttFind main path and the training path
+   (phase 5) give it (plus one 256px-scale upsample): max abs error against
+   the stated tolerance, and
    CUDA-event times of the kernel, the plain version and the one-call
    PyTorch yardstick, beside the least time the card's memory and float32
    arithmetic rates allow.
@@ -20,15 +21,34 @@ Phases, in order; any failure exits non-zero:
    then run in float32, where they must agree closely.
 4. The card against the CPU: phase 1 for 2 images and one 32-element sweep
    chunk, float32 with TF32 off, the same weights on both.
+5. The training path at full width: the CLI's defaults (64px, capacity 16,
+   OLD arch, ResNet-18 classifier, batch 4 x 8 micro-batches, the 512-image
+   synthetic set), float32, 6 ``Trainer.train()`` steps with GP at steps 0
+   and 4, PL at step 4, the EMA reset at step 2 and an EMA update at step 4.
+   Losses must stay finite, the weights move, and the upsample and blur
+   kernels launch. Then 2 bfloat16 steps, which must stay finite.
+6. Precision against a float64 witness on the CPU: the trainable convs of
+   the step alone (output, input and weight gradients; the im2col path
+   held, cuDNN reported), then one train step at full width, batch 2 x 2,
+   float32 with TF32 off, GP and PL on, the same weights and draws on the
+   CPU in float64 and float32 and on the card; losses and gradients per
+   tree of both float32 runs against the witness and of the card against
+   the CPU (held), and of the card with every convolution in cuDNN
+   (reported).
 
-It prints a ``kernels`` JSON line and, last, the ``ok`` JSON line. Details
-go to ``chiprun_out/chip_smoke.json``.
+Phase 2 also holds the blur fused with 2x decimation, which no path runs,
+at the D/E shapes of training. The script prints a ``kernels`` JSON line
+and, last, the ``ok`` JSON line. Details go to
+``chiprun_out/chip_smoke.json``.
 """
 
+import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -42,6 +62,9 @@ COORD_BATCH = 616
 N_IMAGES = 4
 F32_TOL = 1e-6  # kernel and plain version do the same float ops: expect 0
 CPU_RTOL, CPU_ATOL = 1e-3, 1e-4  # cuDNN and the CPU sum convolutions in other orders
+TRAIN_BATCH = 32  # images per train step at the CLI defaults: 4 x 8 micro-batches
+# the kernels that AttFind and training run; blur3_downsample2x is on no path
+ON_PATH = ("upsample2x_bilinear", "blur3")
 
 
 def log(msg: str) -> None:
@@ -102,11 +125,24 @@ def kernel_phase(card: str, rates):
     blur_phase1 = [(N_IMAGES, 64, 64, 64), (N_IMAGES, 128, 32, 32), (N_IMAGES, 256, 16, 16),
                    (N_IMAGES, 512, 8, 8), (N_IMAGES, 512, 4, 4)]
     up_256px = [(4, 64, 128, 128)]
+    # training at the CLI defaults (phase 5): the D/E full-resolution maps
+    # before each stride-2 conv, at 64px (capacity 16)
+    de_maps = [(64, 64, 64), (128, 32, 32), (256, 16, 16), (512, 8, 8), (512, 4, 4)]
+    t = TRAIN_BATCH
+    down_train = [(t, *m) for m in de_maps]
+    # D over [fake; real] in the D phase (2 x 32), D in GP and the G phase
+    # (32; GP's double backward blurs the same shapes), E over the encoder
+    # micro-batches (4 of 8, 16 images); G's RGB-skip blur at 32
+    blur_train = ([(2 * t, *m) for m in de_maps] + down_train + [(t // 2, *m) for m in de_maps]
+                  + [(t, 3, s, s) for s in (8, 16, 32, 64)])
+    # G's block-entry and RGB-skip upsamples at 32
+    up_train = [(t, *s[1:]) for s in up_shapes]
 
-    def blur_library(x):
+    def blur_library(x, stride=1):
         k = x.new_tensor([1.0, 2.0, 1.0])
         k = (k[:, None] * k[None, :] / 16.0).expand(x.shape[1], 1, 3, 3)
-        return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), k, groups=x.shape[1])
+        return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), k, groups=x.shape[1],
+                        stride=stride)
 
     specs = {
         "upsample2x_bilinear": dict(
@@ -114,11 +150,17 @@ def kernel_phase(card: str, rates):
             library=lambda x: F.interpolate(x, scale_factor=2, mode="bilinear",
                                             align_corners=False),
             # read x, write 4x; 3 two-tap sums (2 mul + 1 add) per output
-            bytes_per_in=5, flops_per_in=4 * 9, chunk=up_shapes, extra=up_256px),
+            bytes_per_in=5, flops_per_in=4 * 9, chunk=up_shapes, extra=up_256px + up_train),
         "blur3": dict(
             wrapper=ops.blur3, plain=ops.blur3_plain, library=blur_library,
             # read x, write x; 4 three-tap sums (3 mul + 2 add) per output
-            bytes_per_in=2, flops_per_in=4 * 5, chunk=blur_shapes, extra=blur_phase1),
+            bytes_per_in=2, flops_per_in=4 * 5, chunk=blur_shapes,
+            extra=blur_phase1 + blur_train),
+        "blur3_downsample2x": dict(
+            wrapper=ops.blur3_downsample2x, plain=ops.blur3_downsample2x_plain,
+            library=lambda x: blur_library(x, stride=2),
+            # read x, write a quarter; 4 three-tap sums per kept output
+            bytes_per_in=1.25, flops_per_in=4 * 5 / 4, chunk=down_train, extra=[]),
     }
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, summary = [], {}
@@ -216,8 +258,8 @@ def main_path_phase(card: str):
                   "style_coordinates", "discriminator"):
             if not np.isfinite(getattr(rec, f)).all():
                 raise AssertionError(f"{label}: non-finite {f}")
-        for name, count in launches.items():
-            if count <= 0:
+        for name in ON_PATH:
+            if launches[name] <= 0:
                 raise AssertionError(f"{label}: kernel {name} was not launched on the main path")
 
     checks = {}
@@ -306,11 +348,272 @@ def card_vs_cpu_phase():
     return errs
 
 
+# ------------------------------------------------------------------ phase 5
+
+
+def _cuda_ms(fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def training_phase(card: str):
+    from stylex_tpu_torch.config import ModelConfig, TrainConfig
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+    from stylex_tpu_torch.train.trainer import Trainer
+
+    base = Path(tempfile.mkdtemp(prefix="stylex_train_", dir=OUT_DIR))
+    out = {}
+    try:
+        for dtype, n_steps in (("float32", 6), ("bfloat16", 2)):
+            tc = TrainConfig(pl_start_step=0, pl_every=4, ema_start_step=0, ema_every=2,
+                             save_every=1000, evaluate_every=1000, num_image_tiles=4,
+                             compute_dtype=dtype)
+            trainer = Trainer(name=f"smoke-{dtype}", base_dir=str(base), model_cfg=ModelConfig(),
+                              train_cfg=tc, classifier_name="resnet", seed=0)
+            try:
+                trainer.set_data_src(dataset_name="synthetic")
+                trainer.init_stylex()
+                model = trainer.state.model
+                w0 = model.G.blocks[0].conv1.weight.detach().clone()
+                d0 = model.D.fc.weight.detach().clone()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                rows, ema_checks = [], {}
+                for i in range(n_steps):
+                    ms, metrics = _cuda_ms(trainer.train)
+                    rows.append(dict(step=i, ms=ms, **metrics))
+                    log(f"  {dtype} step {i}: {ms:.1f} ms " + " ".join(
+                        f"{k}={v:.5g}" for k, v in metrics.items()) + f" [{card}]")
+                    if not all(np.isfinite(v) for v in metrics.values()):
+                        raise AssertionError(f"{dtype} step {i}: non-finite metrics {metrics}")
+                    if dtype == "float32" and i == 2:  # the EMA reset copied G into GE
+                        ema_checks["reset_at_2"] = all(
+                            torch.equal(a, b) for a, b in zip(model.GE.parameters(),
+                                                               model.G.parameters()))
+                        ge2 = [p.detach().clone() for p in model.GE.parameters()]
+                    if dtype == "float32" and i == 4:  # then moved by the EMA update
+                        ema_checks["update_at_4"] = not all(
+                            torch.equal(a, b) for a, b in zip(model.GE.parameters(), ge2))
+                launches = dict(LAUNCHES)
+                peak = torch.cuda.max_memory_allocated()
+            finally:
+                trainer.close()
+            moved = (not torch.equal(w0, model.G.blocks[0].conv1.weight)
+                     and not torch.equal(d0, model.D.fc.weight))
+            steady = [r["ms"] for r in rows[1:]] or [rows[0]["ms"]]
+            ms_step = statistics.median(steady)
+            res = dict(steps=rows, launches=launches, peak_bytes=peak, ms_per_step=ms_step,
+                       images_per_s=TRAIN_BATCH / (ms_step / 1e3), ema=ema_checks, moved=moved)
+            out[dtype] = res
+            log(f"  {dtype}: median {ms_step:.1f} ms/step over steps 1..{n_steps - 1} "
+                f"(step 0 {rows[0]['ms']:.1f} ms, with the first save and evaluation), "
+                f"{res['images_per_s']:.1f} images/s, peak {peak / 2**30:.3f} GiB, "
+                f"launches {launches} [{card}]")
+            if not moved:
+                raise AssertionError(f"{dtype}: G or D weights did not move")
+            if dtype == "float32":
+                gp = [r["gp"] for r in rows]
+                if not (gp[0] > 0 and gp[4] > 0 and gp[1] == gp[2] == gp[3] == gp[5] == 0):
+                    raise AssertionError(f"GP must run at steps 0 and 4 only: {gp}")
+                pl = [r["pl_mean"] for r in rows]
+                if not (pl[3] == -1.0 and pl[4] >= 0):
+                    raise AssertionError(f"PL must first run at step 4: pl_mean {pl}")
+                if not (ema_checks["reset_at_2"] and ema_checks["update_at_4"]):
+                    raise AssertionError(f"EMA reset/update did not fire: {ema_checks}")
+                for name in ON_PATH:
+                    if launches[name] <= 0:
+                        raise AssertionError(f"training did not launch kernel {name}")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+# ------------------------------------------------------------------ phase 6
+
+
+class _RecordSGD(torch.optim.SGD):
+    """SGD that keeps the gradients of its last step."""
+
+    def step(self, closure=None):
+        self.grads = [p.grad.detach().cpu().clone() for g in self.param_groups
+                      for p in g["params"]]
+        return super().step(closure)
+
+
+def _draws_to(draws, device):
+    def move(x):
+        if torch.is_tensor(x):
+            return x.to(device)
+        if isinstance(x, tuple):
+            return type(x)(*map(move, x)) if hasattr(x, "_fields") else tuple(map(move, x))
+        return x
+
+    return move(draws)
+
+
+TRAIN_TREES = ("encoder", "S", "G", "D")
+# (input, weight, stride, padding): the trainable convs of phase 6's step
+# where cuDNN's float32 weight gradient strays most (D over 4 fakes and 4
+# reals, E and G over 4 images), a stride-2 one, and LPIPS's frozen 5x5
+CONV_CASES = [((8, 64, 64, 64), (64, 64, 3, 3), 1, 1), ((4, 32, 64, 64), (32, 32, 3, 3), 1, 1),
+              ((8, 128, 32, 32), (128, 128, 3, 3), 1, 1), ((4, 512, 8, 8), (512, 512, 3, 3), 1, 1),
+              ((4, 256, 16, 16), (256, 256, 3, 3), 2, 1), ((8, 64, 32, 32), (128, 64, 1, 1), 2, 0),
+              ((4, 64, 7, 7), (192, 64, 5, 5), 1, 2)]
+GEMM_TOL = 1e-5  # of max |float64 result|; a direct float32 sum keeps ~1e-6
+
+
+def _grad_errs(got, want):
+    """Per tree: (max |got - want| / max|want|, elements beyond rtol
+    CPU_RTOL + atol CPU_ATOL x max|want|, max|want|)."""
+    out = {}
+    for tree in TRAIN_TREES:
+        keys = [k for k in want if k.startswith(tree + ".")]
+        scale = max(float(want[k].abs().max()) for k in keys)
+        worst, n_bad = 0.0, 0
+        for k in keys:
+            diff = (got[k].double() - want[k].double()).abs()
+            n_bad += int((diff - (CPU_RTOL * want[k].double().abs() + CPU_ATOL * scale) > 0).sum())
+            worst = max(worst, float(diff.max()) / scale)
+        out[tree] = (worst, n_bad, scale)
+    return out
+
+
+def conv_precision():
+    """Each conv of ``CONV_CASES`` alone: output, input gradient and weight
+    gradient in float32 on the card, by the im2col path and by cuDNN,
+    against float64 on the CPU (max |diff| / max |float64|). The im2col
+    path must stay within ``GEMM_TOL``; cuDNN's errors are reported."""
+    import torch.nn.functional as F
+
+    from stylex_tpu_torch.device import set_float32_precision
+    from stylex_tpu_torch.ops.conv import conv2d_gemm
+
+    set_float32_precision()
+    gen = torch.Generator().manual_seed(0)
+    out = []
+    for xs, ws, stride, pad in CONV_CASES:
+        x = torch.randn(xs, generator=gen, dtype=torch.float64)
+        w = torch.randn(ws, generator=gen, dtype=torch.float64) / np.sqrt(np.prod(ws[1:]))
+
+        def run(fn, dev, dtype):
+            xx = x.to(dev, dtype).requires_grad_(True)
+            ww = w.to(dev, dtype).requires_grad_(True)
+            y = fn(xx, ww, None, stride, pad)
+            gy = torch.cos(torch.arange(y.numel(), dtype=torch.float64)).reshape(y.shape)
+            grads = torch.autograd.grad(y, (xx, ww), gy.to(dev, dtype))
+            return [t.detach().double().cpu() for t in (y, *grads)]
+
+        ref = run(F.conv2d, "cpu", torch.float64)
+        row = dict(x=list(xs), w=list(ws), stride=stride, padding=pad)
+        for label, fn in (("gemm", conv2d_gemm), ("cudnn", F.conv2d)):
+            got = run(fn, "cuda", torch.float32)
+            row[label] = [float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref)]
+        out.append(row)
+        log(f"  conv {xs} w{ws} stride {stride}: y/dx/dw error vs float64: im2col "
+            + " ".join(f"{e:.3g}" for e in row["gemm"]) + ", cuDNN "
+            + " ".join(f"{e:.3g}" for e in row["cudnn"]) + f" (im2col tol {GEMM_TOL})")
+        if max(row["gemm"]) > GEMM_TOL:
+            raise AssertionError(f"im2col conv {xs} w{ws}: error {max(row['gemm'])} > {GEMM_TOL}")
+    return out
+
+
+def train_card_vs_cpu_phase():
+    """One train step from the same weights, batch and draws: on the CPU in
+    float64 (the witness: float64 copies of the float32 weights), on the CPU
+    in float32, and on the card in float32 as the trainer runs it (trainable
+    convolutions by im2col while autograd records, the rest in cuDNN). Both
+    float32 runs are held against the witness, and the card against the
+    CPU. A last card run with every convolution in cuDNN is reported: the
+    drift that the im2col path removes."""
+    from stylex_tpu_torch.config import ModelConfig, TrainConfig
+    from stylex_tpu_torch.data import SyntheticImageDataset
+    from stylex_tpu_torch.device import set_float32_precision
+    from stylex_tpu_torch.models import build_classifier, build_stylex
+    from stylex_tpu_torch.models.lpips import init_lpips_params
+    from stylex_tpu_torch.ops import conv as conv_ops
+    from stylex_tpu_torch.train import create_train_state, draw_step, make_train_step
+
+    set_float32_precision()
+    cfg = ModelConfig()
+    tc = TrainConfig(batch_size=2, gradient_accumulate_every=2, pl_start_step=-1, pl_every=1,
+                     aug_prob=0.5)
+    ds = SyntheticImageDataset(12, cfg.image_size, seed=2)
+    imgs = (np.stack([ds[i] for i in range(12)]) * 255 + 0.5).astype(np.uint8)
+    batch = {k: imgs[4 * j:4 * j + 4].reshape(2, 2, *imgs.shape[1:])
+             for j, k in enumerate(("d_real", "d_enc", "g_imgs"))}
+    sd = build_stylex(cfg, seed=3, device="cpu").state_dict()
+    num_layers = int(np.log2(cfg.image_size)) - 1
+    draws = draw_step(torch.Generator().manual_seed(5), cfg, tc, 2, num_layers, tc.aug_prob, 0)
+
+    def run(dev, dtype):
+        model = build_stylex(cfg, device=dev)
+        model.load_state_dict(sd)
+        clf = build_classifier("resnet", cfg.image_size, seed=3, device=dev)
+        clf.net.requires_grad_(False)
+        if dtype == "float64":
+            clf.to(torch.float64)
+        step_tc = dataclasses.replace(tc, compute_dtype=dtype)
+        state = create_train_state(model, cfg, step_tc)
+        state.pl_mean = torch.tensor(0.5, device=state.device)
+        state.g_opt = _RecordSGD([p for g in state.g_opt.param_groups for p in g["params"]],
+                                 lr=1e-4)
+        state.d_opt = _RecordSGD(list(model.D.parameters()), lr=1e-4)
+        step = make_train_step(cfg, step_tc, clf.classify_images, init_lpips_params(device=dev))
+        metrics = step(state, batch, _draws_to(draws, dev))
+        names = [n for n, _ in model.named_parameters()]
+        g_names = [n for n in names if n.startswith(("encoder.", "S.", "G."))]
+        grads = dict(zip(g_names, state.g_opt.grads))
+        grads.update(zip([n for n in names if n.startswith("D.")], state.d_opt.grads))
+        return {k: float(v) for k, v in metrics.items()}, grads
+
+    runs = {"cpu_f64": run("cpu", "float64"), "cpu_f32": run("cpu", "float32"),
+            "card": run("cuda", "float32")}
+    conv_ops.GEMM_FLOAT32 = False
+    try:
+        runs["card_cudnn_only"] = run("cuda", "float32")
+    finally:
+        conv_ops.GEMM_FLOAT32 = True
+    m64, g64 = runs["cpu_f64"]
+    errs, faults = {}, []
+    # (run, reference, held)
+    pairs = [("cpu_f32", "cpu_f64", True), ("card", "cpu_f64", True), ("card", "cpu_f32", True),
+             ("card_cudnn_only", "cpu_f64", False), ("card_cudnn_only", "cpu_f32", False)]
+    for label, ref, held in pairs:
+        (m, g), (m_ref, g_ref) = runs[label], runs[ref]
+        tag = "" if held else " (reported)"
+        for k, want in m_ref.items():
+            err = abs(m[k] - want)
+            errs[f"{label}_vs_{ref}_{k}"] = err
+            log(f"  {label} vs {ref} {k:9s}: {m[k]:.7g} vs {want:.7g}, abs err {err:.3g} "
+                f"(rtol {CPU_RTOL}, atol {CPU_ATOL}){tag}")
+            if held and err > CPU_ATOL + CPU_RTOL * abs(want):
+                faults.append(f"{label} vs {ref}: loss {k}")
+        for tree, (worst, n_bad, scale) in _grad_errs(g, g_ref).items():
+            errs[f"{label}_vs_{ref}_grad_{tree}_max_abs_err_over_max"] = worst
+            errs[f"{label}_vs_{ref}_grad_{tree}_n_beyond"] = n_bad
+            log(f"  {label} vs {ref} grad {tree:8s}: max |diff| / max|g| = {worst:.3g} "
+                f"(max|g| {scale:.4g}; {n_bad} elements beyond rtol {CPU_RTOL}, "
+                f"atol {CPU_ATOL} x max|g|){tag}")
+            if held and n_bad:
+                faults.append(f"{label} vs {ref}: grad {tree}")
+    if faults:
+        raise AssertionError(f"train step: runs disagree: {faults}")
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
     sys.path.insert(0, str(ROOT))
     from stylex_tpu_torch import csrc
+
+    OUT_DIR.mkdir(exist_ok=True)
 
     t_start = time.perf_counter()
     card = card_line()
@@ -331,31 +634,46 @@ def main() -> int:
     log("[phase 4] card against CPU, float32, TF32 off")
     cpu_errs = card_vs_cpu_phase()
 
+    log("[phase 5] training path: Trainer.train() at the CLI defaults, full width")
+    train_out = training_phase(card)
+
+    log("[phase 6] card against CPU and a float64 witness: convolutions, then one train step, "
+        "full width, float32, TF32 off")
+    conv_rows = conv_precision()
+    train_cpu_errs = train_card_vs_cpu_phase()
+
     sources = {"upsample2x_bilinear": "stylex_tpu_torch/csrc/upsample2x_bilinear.cu",
-               "blur3": "stylex_tpu_torch/csrc/blur3.cu"}
-    replaces = {"upsample2x_bilinear": "stylex_tpu/ops/pallas_upsample.py:158",
-                "blur3": "stylex_tpu/ops/pallas_blur.py:121"}
+               "blur3": "stylex_tpu_torch/csrc/blur3.cu",
+               "blur3_downsample2x": "stylex_tpu_torch/csrc/blur3.cu"}
+    replaces = {"upsample2x_bilinear": "stylex_tpu/ops/pallas_upsample.py:159",
+                "blur3": "stylex_tpu/ops/pallas_blur.py:122",
+                "blur3_downsample2x": "stylex_tpu/ops/pallas_blur.py:128"}
     kernels = [
         dict(name=name, route="cuda", source=sources[name], replaces=replaces[name],
              launches=main_out["resume"]["launches"][name],
              launches_flat=main_out["flat"]["launches"][name],
+             launches_train=train_out["float32"]["launches"][name],
+             launches_train_bf16=train_out["bfloat16"]["launches"][name],
              max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
              bound_ms=s["bound_ms"], bound_by="+".join(sorted(s["bound_by"])),
              library_ms=s["library_ms"])
         for name, s in summary.items()
     ]
-    OUT_DIR.mkdir(exist_ok=True)
     detail = dict(
         card=card, kind=kind, torch=torch.__version__, cuda=torch.version.cuda,
         kernel_rows=rows, kernels=kernels,
         main_path={k: {kk: vv for kk, vv in v.items() if kk != "records"}
                    for k, v in main_out.items()},
         main_path_checks=checks, ranked=ranked,
-        card_vs_cpu=cpu_errs, seconds=time.perf_counter() - t_start,
+        card_vs_cpu=cpu_errs, training=train_out, conv_precision=conv_rows,
+        train_card_vs_cpu=train_cpu_errs,
+        seconds=time.perf_counter() - t_start,
     )
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log(f"done in {detail['seconds']:.1f} s; kernel ms, plain_ms, library_ms and bound_ms are "
-        f"sums over one bf16 sweep chunk's calls; launches from the block-resume run")
+        f"bf16 sums over one sweep chunk's calls (blur3_downsample2x: over the D/E shapes of "
+        f"one 32-image training phase); launches from the block-resume run, launches_train "
+        f"from the 6 float32 training steps")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,200 @@
+"""Training CLI: the ``train_from_folder`` flags that the port supports.
+
+    python -m stylex_tpu_torch.cli --data ./data/plants --image-size 64 \\
+        --batch-size 4 --gradient-accumulate-every 8 --classifier-name resnet
+
+Flags are ``--key value`` or ``--key=value``, kebab or snake case, with
+Python literals for numbers, bools and lists; a bare flag means True. The
+names and defaults are the JAX package's CLI's, plus ``--device`` (default:
+the GPU; ``--device cpu`` runs on the host). A flag of that CLI that the
+port does not support yet (FID, interpolation, MNIST, attention layers, the
+scan step, multi-device...) is refused; ``--cl-reg`` and ``--fq-layers``
+reach the step and model, which raise ``NotImplementedError``. A step whose
+losses go non-finite reloads the latest checkpoint and is retried, 3 times
+at most.
+"""
+
+from __future__ import annotations
+
+import ast
+import inspect
+import random as pyrandom
+import sys
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from stylex_tpu_torch.config import Arch, ModelConfig, TrainConfig
+
+__all__ = ["train_from_folder", "parse_argv", "main"]
+
+
+def _as_tuple(x) -> tuple:
+    return tuple(x) if isinstance(x, (list, tuple)) else (x,)
+
+
+def train_from_folder(
+    data: str = "./data",
+    results_dir: str = "./results",
+    models_dir: str = "./models",
+    name: str = "default",
+    new: bool = False,
+    load_from: int = -1,
+    image_size: int = 64,
+    network_capacity: int = 16,
+    fmap_max: int = 512,
+    transparent: bool = False,
+    batch_size: int = 4,
+    gradient_accumulate_every: int = 8,
+    num_train_steps: int = 150000,
+    learning_rate: float = 2e-4,
+    lr_mlp: float = 0.1,
+    ttur_mult: float = 1.5,
+    rel_disc_loss: bool = False,
+    num_workers: Optional[int] = None,
+    save_every: int = 500,
+    evaluate_every: int = 50,
+    generate: bool = False,
+    num_generate: int = 1,
+    num_image_tiles: int = 8,
+    trunc_psi: float = 0.75,
+    mixed_prob: float = 0.9,
+    fp16: bool = False,
+    bf16: bool = False,
+    no_pl_reg: bool = False,
+    cl_reg: bool = False,
+    fq_layers: Sequence[int] = (),
+    fq_dict_size: int = 256,
+    aug_prob: Optional[float] = None,
+    aug_types: Sequence[str] = ("translation", "cutout"),
+    top_k_training: bool = False,
+    generator_top_k_gamma: float = 0.99,
+    generator_top_k_frac: float = 0.5,
+    dual_contrast_loss: bool = False,
+    dataset_aug_prob: float = 0.0,
+    seed: int = 42,
+    kl_scaling: float = 1.0,
+    rec_scaling: float = 1.0,
+    classifier_path: Optional[str] = None,
+    lpips_path: Optional[str] = None,
+    num_classes: int = 2,
+    sample_from_encoder: bool = True,
+    alternating_training: bool = True,
+    kl_rec_during_disc: bool = False,
+    dataset_name: Optional[str] = None,
+    classifier_name: str = "resnet",
+    use_old_architecture: bool = True,
+    fused_microbatches: bool = True,
+    device: Optional[str] = None,
+) -> None:
+    """Train (or, with ``generate``, sample grids from) a StylEx model."""
+    from stylex_tpu_torch.train.trainer import NanException, Trainer
+
+    np.random.seed(seed)
+    pyrandom.seed(seed)
+    torch.manual_seed(seed)
+    model_cfg = ModelConfig(
+        image_size=image_size, network_capacity=network_capacity, fmap_max=fmap_max,
+        latent_dim=512 + num_classes, lr_mlp=lr_mlp, transparent=transparent,
+        num_classes=num_classes, arch=Arch.OLD if use_old_architecture else Arch.NEW,
+        fq_layers=_as_tuple(fq_layers), fq_dict_size=fq_dict_size,
+    )
+    train_cfg = TrainConfig(
+        batch_size=batch_size, gradient_accumulate_every=gradient_accumulate_every,
+        lr=learning_rate, ttur_mult=ttur_mult,
+        mixed_prob=mixed_prob, kl_scaling=kl_scaling, rec_scaling=rec_scaling,
+        alternating_training=alternating_training, kl_rec_during_disc=kl_rec_during_disc,
+        sample_from_encoder=sample_from_encoder, dual_contrast_loss=dual_contrast_loss,
+        rel_disc_loss=rel_disc_loss, cl_reg=cl_reg, top_k_training=top_k_training,
+        generator_top_k_gamma=generator_top_k_gamma,
+        generator_top_k_frac=generator_top_k_frac, aug_prob=aug_prob, num_workers=num_workers,
+        aug_types=_as_tuple(aug_types), dataset_aug_prob=dataset_aug_prob, no_pl_reg=no_pl_reg,
+        save_every=save_every, evaluate_every=evaluate_every, trunc_psi=trunc_psi,
+        num_image_tiles=num_image_tiles,
+        compute_dtype="bfloat16" if (bf16 or fp16) else "float32",
+        fused_microbatches=fused_microbatches,
+    )
+    trainer = Trainer(name=name, results_dir=results_dir, models_dir=models_dir,
+                      model_cfg=model_cfg, train_cfg=train_cfg, classifier_name=classifier_name,
+                      classifier_path=classifier_path, lpips_path=lpips_path, seed=seed,
+                      device=device)
+    try:
+        if generate:
+            trainer.load(load_from)
+            for i in range(num_generate):
+                trainer.evaluate(num=i)
+            print(f"sample images generated under {trainer.results_dir / name}")
+            return
+        if new:
+            trainer.clear()
+        else:
+            trainer.load(load_from)
+        trainer.set_data_src(data, dataset_name)
+        while trainer.steps < num_train_steps:
+            retries = 3
+            while True:
+                try:
+                    metrics = trainer.train()
+                    break
+                except NanException:
+                    retries -= 1
+                    if retries <= 0:
+                        raise
+            if trainer.steps % 50 == 0:
+                trainer.logger.print_line(trainer.steps, metrics)
+        trainer.save(trainer.checkpoint_num)
+    finally:
+        trainer.close()
+
+
+def _parse_value(v: str) -> Any:
+    try:
+        return ast.literal_eval(v)
+    except (ValueError, SyntaxError):
+        low = v.lower()
+        if low in ("true", "false"):
+            return low == "true"
+        if low in ("none", "null"):
+            return None
+        return v
+
+
+def parse_argv(argv: Sequence[str]) -> Dict[str, Any]:
+    """``--key value`` / ``--key=value`` / bare ``--flag`` -> kwargs of
+    :func:`train_from_folder`; anything else exits with a message."""
+    known = set(inspect.signature(train_from_folder).parameters)
+    kwargs: Dict[str, Any] = {}
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if not arg.startswith("--"):
+            raise SystemExit(f"unexpected positional argument: {arg}")
+        key = arg[2:]
+        if "=" in key:
+            key, val = key.split("=", 1)
+        elif i + 1 < len(argv) and not argv[i + 1].startswith("--"):
+            i += 1
+            val = argv[i]
+        else:
+            val = "True"
+        key = key.replace("-", "_")
+        if key not in known:
+            raise SystemExit(f"--{key.replace('_', '-')} is not supported by stylex_tpu_torch")
+        kwargs[key] = _parse_value(val)
+        i += 1
+    return kwargs
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in ("-h", "--help"):
+        print("usage: python -m stylex_tpu_torch.cli [--flag value ...]\n\nflags:")
+        for p in inspect.signature(train_from_folder).parameters.values():
+            print(f"  --{p.name.replace('_', '-')} (default: {p.default!r})")
+        return
+    train_from_folder(**parse_argv(argv))
+
+
+if __name__ == "__main__":
+    main()

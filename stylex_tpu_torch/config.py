@@ -1,8 +1,9 @@
-"""Model configuration and its ``.config.json`` round trip.
+"""Model and training configuration.
 
-The same fields, defaults and JSON layout as the JAX package's
-``ModelConfig``, so a model directory written by either package is read by
-the other.
+``ModelConfig`` has the same fields, defaults and ``.config.json`` layout
+as the JAX package's, so a model directory written by either package is
+read by the other. ``TrainConfig`` holds the JAX package's training fields
+and defaults that the port reads.
 """
 
 from __future__ import annotations
@@ -70,3 +71,46 @@ class ModelConfig:
         d["fq_layers"] = tuple(d.get("fq_layers", ()))
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclass
+class TrainConfig:
+    """Training hyperparameters: the JAX package's ``TrainConfig`` fields
+    and defaults that the port's training reads."""
+
+    batch_size: int = 4
+    gradient_accumulate_every: int = 8
+    lr: float = 2e-4
+    ttur_mult: float = 1.5
+    encoder_lr: Optional[float] = None  # NEW arch: 1e-5 when None
+    mixed_prob: float = 0.9
+    kl_scaling: float = 1.0
+    rec_scaling: float = 1.0
+    alternating_training: bool = True
+    kl_rec_during_disc: bool = False
+    sample_from_encoder: bool = True
+    dual_contrast_loss: bool = False
+    rel_disc_loss: bool = False
+    cl_reg: bool = False  # not ported: the step raises
+    top_k_training: bool = False
+    generator_top_k_gamma: float = 0.99
+    generator_top_k_frac: float = 0.5
+    aug_prob: Optional[float] = None  # set from the dataset size when None
+    num_workers: Optional[int] = None
+    aug_types: Tuple[str, ...] = ("translation", "cutout")
+    dataset_aug_prob: float = 0.0
+    no_pl_reg: bool = False
+    gp_every: int = 4
+    pl_every: int = 32
+    pl_start_step: int = 5000
+    ema_beta: float = 0.995
+    ema_every: int = 10
+    ema_start_step: int = 20_000
+    ema_reset_every: int = 1000
+    ema_reset_until: int = 25_000
+    save_every: int = 500
+    evaluate_every: int = 50
+    trunc_psi: float = 0.75
+    num_image_tiles: int = 8
+    compute_dtype: str = "float32"  # 'float32' | 'bfloat16' | 'float64' (a CPU witness)
+    fused_microbatches: bool = True  # False (the scan step) is not ported: the step raises

@@ -9,8 +9,9 @@ together. Nothing is compiled or loaded when this module is imported.
 
 Every C entry point has the signature
 ``int fn(const void* x, void* y, long long planes, int h, int w,
-int max_blocks, int device, void* stream)`` and returns
-``cudaGetLastError()`` after its launch.
+int max_blocks, int device, void* stream)``, where ``h`` and ``w`` are the
+input's size, and returns ``cudaGetLastError()`` after its launch. Kernel
+names that share a source share its one library.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ KERNELS: Dict[str, tuple] = {
     "upsample2x_bilinear": ("upsample2x_bilinear.cu",
                             ("upsample2x_bilinear_f32", "upsample2x_bilinear_bf16")),
     "blur3": ("blur3.cu", ("blur3_f32", "blur3_bf16")),
+    "blur3_downsample2x": ("blur3.cu", ("blur3_downsample2x_f32", "blur3_downsample2x_bf16")),
 }
 
 NVCC_FLAGS = (
@@ -46,7 +48,8 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}  # kernel name -> its source's library
+_libraries: Dict[Path, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -60,10 +63,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of kernel ``name`` is (or will be) built."""
+    """Where the library of kernel ``name`` (its source's) is or will be built."""
     src = _HERE / KERNELS[name][0]
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> Dict[str, Path]:
@@ -75,30 +78,31 @@ def build(names: Optional[Iterable[str]] = None, verbose: bool = False) -> Dict[
     """
     names = list(KERNELS if names is None else names)
     paths = {n: library_path(n) for n in names}
-    todo = [n for n in names if not paths[n].exists()]
+    # one build per missing library, whatever the number of kernels in it
+    todo = {paths[n]: KERNELS[n][0] for n in names if not paths[n].exists()}
     if not todo:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for n in todo:
+    for path, src in todo.items():
         # build to a private name, then rename: a concurrent build never
         # sees a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_HERE / KERNELS[n][0])]
-        procs.append((n, tmp, subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_HERE / src)]
+        procs.append((path, src, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failures = []
-    for n, tmp, proc in procs:
+    for path, src, tmp, proc in procs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failures.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
+            failures.append(f"{src}: nvcc exited {proc.returncode}\n{out}")
             os.unlink(tmp)
             continue
-        os.replace(tmp, paths[n])
+        os.replace(tmp, path)
         if verbose:
-            print(f"[nvcc {n}]\n{out.strip()}", flush=True)
+            print(f"[nvcc {src}]\n{out.strip()}", flush=True)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return paths
@@ -108,9 +112,10 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if missing."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        path = build([name])[name]
+        lib = _libraries.get(path) or ctypes.CDLL(str(path))
+        _libraries[path] = _loaded[name] = lib
         for fn in KERNELS[name][1]:
             getattr(lib, fn).argtypes = _ARGTYPES
             getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
     return lib

@@ -14,7 +14,7 @@ from stylex_tpu_torch.models.generator import (
     style_coord_dims,
 )
 from stylex_tpu_torch.models.mapping import StyleVectorizer
-from stylex_tpu_torch.models.stylex import StylEx, build_stylex, make_w, prior_w
+from stylex_tpu_torch.models.stylex import StylEx, build_stylex, ema_update, make_w, prior_w
 
 __all__ = [
     "ClassifierBundle",
@@ -32,6 +32,7 @@ __all__ = [
     "StyleVectorizer",
     "StylEx",
     "build_stylex",
+    "ema_update",
     "make_w",
     "prior_w",
 ]

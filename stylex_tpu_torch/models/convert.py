@@ -8,6 +8,9 @@
   columns go back from the (2, 2, C) flatten order to torch's (C, 2, 2).
 * :func:`classifier_state_dict_from_jax` does the same for the flax
   ResNet-18 / MobileNetV2 variables, into torchvision's keys.
+* :func:`lpips_params_from_jax` does it for the LPIPS tree, and
+  :func:`train_state_from_jax` for a whole train state: parameters, EMA
+  copies, the optax Adam moments and count, ``step`` and ``pl_mean``.
 * :func:`load_reference_checkpoint` reads a reference ``.pt`` file.
 
 No JAX is needed: the trees are nested mappings of numpy arrays.
@@ -27,6 +30,8 @@ from stylex_tpu_torch.models.generator import generator_filters
 
 __all__ = [
     "stylex_state_dict_from_jax",
+    "lpips_params_from_jax",
+    "train_state_from_jax",
     "classifier_state_dict_from_jax",
     "load_reference_checkpoint",
 ]
@@ -92,19 +97,101 @@ def _trunk(sd: StateDict, prefix: str, p: Mapping, cfg: ModelConfig) -> None:
     sd[f"{prefix}.fc.bias"] = _t(p["fc"]["bias"])
 
 
+def _subtree_state_dict(name: str, tree: Mapping, cfg: ModelConfig) -> StateDict:
+    """One of the JAX trees 'encoder', 'S', 'G', 'D', 'SE', 'GE' (or a tree
+    shaped like it, such as an Adam moment) -> ``{'<name>.<key>': tensor}``."""
+    sd: StateDict = {}
+    if name in ("S", "SE"):
+        _mapping(sd, name, tree, cfg.style_depth)
+    elif name in ("G", "GE"):
+        _generator(sd, name, tree, cfg)
+    else:
+        _trunk(sd, name, tree, cfg)
+    return sd
+
+
 def stylex_state_dict_from_jax(params: Mapping[str, Any], cfg: ModelConfig) -> StateDict:
     """The JAX package's StylEx tree {'encoder','S','G','D','SE','GE'} (numpy
     leaves) -> the port's state dict."""
     if cfg.encoder_class is not None:
         raise NotImplementedError("debug encoders are not ported yet")
     sd: StateDict = {}
-    _trunk(sd, "encoder", params["encoder"], cfg)
-    _mapping(sd, "S", params["S"], cfg.style_depth)
-    _generator(sd, "G", params["G"], cfg)
-    _trunk(sd, "D", params["D"], cfg)
-    _mapping(sd, "SE", params["SE"], cfg.style_depth)
-    _generator(sd, "GE", params["GE"], cfg)
+    for name in ("encoder", "S", "G", "D", "SE", "GE"):
+        sd.update(_subtree_state_dict(name, params[name], cfg))
     return sd
+
+
+def lpips_params_from_jax(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX package's LPIPS tree ``{'conv{i}': {'kernel' HWIO, 'bias'},
+    'lin{i}'}`` (numpy leaves) -> the port's ``{'conv{i}': {'weight' OIHW,
+    'bias'}, 'lin{i}'}``."""
+    out: Dict[str, Any] = {}
+    for k, v in params.items():
+        if k.startswith("conv"):
+            out[k] = {"weight": _t(np.asarray(v["kernel"]).transpose(3, 2, 0, 1)),
+                      "bias": _t(v["bias"])}
+        else:
+            out[k] = _t(v)
+    return out
+
+
+def _adam_states(opt_state) -> Dict[str, Any]:
+    """The optax Adam states in a JAX optimizer state, by label: ``{'': s}``
+    for a plain ``optax.adam``, ``{'gen': s, 'enc': s}`` for the NEW arch's
+    ``multi_transform``. Read by attribute, so no optax is imported."""
+    if hasattr(opt_state, "inner_states"):  # multi_transform's PartitionState
+        return {label: _adam_states(s)[""] for label, s in opt_state.inner_states.items()}
+    if hasattr(opt_state, "inner_state"):  # MaskedState
+        return _adam_states(opt_state.inner_state)
+    if hasattr(opt_state, "mu"):
+        return {"": opt_state}
+    for s in opt_state:  # chain's tuple: the Adam state is one element
+        if hasattr(s, "mu") or hasattr(s, "inner_state") or hasattr(s, "inner_states"):
+            return _adam_states(s)
+    raise ValueError("no Adam state found in the JAX optimizer state")
+
+
+def _load_adam(opt: torch.optim.Optimizer, params: Dict[str, torch.nn.Parameter], count,
+               moments: Dict[str, tuple], cfg: ModelConfig) -> None:
+    """Copy optax Adam moments ``{subtree name: (mu, nu)}`` and ``count``
+    into ``opt``'s per-parameter state."""
+    step = torch.tensor(float(np.asarray(count)))
+    for name, (mu_tree, nu_tree) in moments.items():
+        mu = _subtree_state_dict(name, mu_tree, cfg)
+        nu = _subtree_state_dict(name, nu_tree, cfg)
+        for key in mu:
+            p = params[key]
+            opt.state[p] = {"step": step.clone(), "exp_avg": mu[key].to(p.device),
+                            "exp_avg_sq": nu[key].to(p.device)}
+
+
+def train_state_from_jax(jax_state, model_cfg: ModelConfig, train_cfg, device=None):
+    """The JAX package's ``StylExTrainState`` (numpy or JAX leaves) -> the
+    port's :class:`~stylex_tpu_torch.train.state.TrainState`: live and EMA
+    parameters, the optax Adam ``mu``/``nu``/``count`` of G (per label in
+    the NEW arch) and D, ``step`` and ``pl_mean``. Placed on ``device``
+    (the GPU unless ``'cpu'``)."""
+    from stylex_tpu_torch.device import resolve_device
+    from stylex_tpu_torch.models.stylex import StylEx
+    from stylex_tpu_torch.train.state import create_train_state
+
+    device = resolve_device(device)
+    tree = {**jax_state.params, **jax_state.ema_params}
+    model = StylEx(model_cfg)
+    model.load_state_dict(stylex_state_dict_from_jax(tree, model_cfg))
+    state = create_train_state(model.to(device), model_cfg, train_cfg)
+    params = dict(state.model.named_parameters())
+    g_adam = _adam_states(jax_state.g_opt_state)
+    for name in ("encoder", "S", "G"):
+        # one Adam over encoder/S/G, or the NEW arch's 'enc' and 'gen' labels
+        adam = g_adam[""] if "" in g_adam else g_adam["enc" if name == "encoder" else "gen"]
+        _load_adam(state.g_opt, params, adam.count,
+                   {name: (adam.mu[name], adam.nu[name])}, model_cfg)
+    d_adam = _adam_states(jax_state.d_opt_state)[""]
+    _load_adam(state.d_opt, params, d_adam.count, {"D": (d_adam.mu, d_adam.nu)}, model_cfg)
+    state.step = int(np.asarray(jax_state.step))
+    state.pl_mean = torch.tensor(float(np.asarray(jax_state.pl_mean)), device=device)
+    return state
 
 
 def _convbn(sd: StateDict, conv_key: str, bn_key: str, params: Mapping, stats: Mapping) -> None:

@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stylex_tpu_torch.ops.conv import conv2d
+
 __all__ = [
     "leaky_relu",
     "kaiming_normal_leaky_",
@@ -57,7 +59,11 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` with the reference's init."""
+    """``nn.Conv2d`` with the reference's init, through :func:`ops.conv.conv2d`
+    (groups and dilation 1)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, self.bias, self.stride, self.padding)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         kaiming_normal_leaky_(self.weight, generator)

@@ -26,7 +26,7 @@ from stylex_tpu_torch.models.generator import Conv2DMod, Generator
 from stylex_tpu_torch.models.layers import Conv2d, EqualLinear, Linear
 from stylex_tpu_torch.models.mapping import StyleVectorizer
 
-__all__ = ["StylEx", "build_stylex", "make_w", "prior_w"]
+__all__ = ["StylEx", "build_stylex", "make_w", "prior_w", "ema_update"]
 
 _SEEDED = (Linear, Conv2d, EqualLinear, Conv2DMod, Generator)
 
@@ -111,3 +111,11 @@ def prior_w(cfg: ModelConfig, s_out: torch.Tensor,
     if cfg.arch == Arch.NEW:
         return torch.cat([s_out, probabilities], dim=-1)
     return s_out
+
+
+@torch.no_grad()
+def ema_update(ema: nn.Module, live: nn.Module, beta: float = 0.995) -> None:
+    """``ema = ema * beta + (1 - beta) * live``, parameter by parameter. The
+    JAX package returns a new tree; this updates ``ema`` in place."""
+    for e, n in zip(ema.parameters(), live.parameters(), strict=True):
+        e.copy_(e * beta + (1.0 - beta) * n)

@@ -1,15 +1,19 @@
 """Bilinear 2x upsample and 3x3 binomial blur (NCHW), each a CUDA kernel
 with its plain PyTorch version beside it.
 
-``upsample2x_bilinear`` and ``blur3`` dispatch on the tensor's device: a CPU
-tensor takes the plain version; a CUDA tensor launches the kernel
-(``csrc/upsample2x_bilinear.cu``, ``csrc/blur3.cu``) or raises on what the
-kernel does not take. Nothing falls back from the kernel to the plain
-version. Both ops are linear, so the backward pass of either is the plain
-version's vjp, whichever forward ran.
+``upsample2x_bilinear``, ``blur3`` and ``blur3_downsample2x`` dispatch on
+the tensor's device: a CPU tensor takes the plain version; a CUDA tensor
+launches the kernel (``csrc/upsample2x_bilinear.cu``, ``csrc/blur3.cu``) or
+raises on what the kernel does not take. Nothing falls back from the kernel
+to the plain version.
 
-The plain versions compute in float32 and round once to the input dtype,
-as the kernels do; with the same order of operations the float32 results
+All three ops are linear. The backward of each is its transpose, an
+autograd Function of its own (the plain version's vjp) whose backward is the
+op again, so second derivatives (the gradient penalty, the path-length
+penalty) differentiate through the op exactly and launch its kernel.
+
+The plain versions compute in float32 (float64 for float64 input) and round
+once to the input dtype, as the kernels do; with the same order of operations the float32 results
 agree bit for bit.
 
 ``LAUNCHES`` counts kernel launches per kernel name; only a launch adds to
@@ -34,6 +38,8 @@ __all__ = [
     "upsample2x_bilinear_plain",
     "blur3",
     "blur3_plain",
+    "blur3_downsample2x",
+    "blur3_downsample2x_plain",
 ]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in csrc.KERNELS}
@@ -49,6 +55,11 @@ def reset_launches() -> None:
 # ------------------------------------------------------------ plain versions
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in float64 if it is that."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _upsample_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
     n = x.shape[dim]
     idx = torch.arange(n, device=x.device)
@@ -62,18 +73,36 @@ def _upsample_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
 def upsample2x_bilinear_plain(x: torch.Tensor) -> torch.Tensor:
     """Bilinear 2x upsample, half-pixel centres (torch ``align_corners=False``),
     as explicit clamp-indexed taps: rows, then columns."""
-    y = _upsample_axis(_upsample_axis(x.float(), 2), 3)
+    y = _upsample_axis(_upsample_axis(_wide(x), 2), 3)
+    return y.to(x.dtype)
+
+
+def _blur_plain(x: torch.Tensor, step: int) -> torch.Tensor:
+    """The blur at every ``step``-th row and column."""
+    h, w = x.shape[-2:]
+    xp = F.pad(_wide(x), (1, 1, 1, 1), mode="reflect")
+    v = (xp[..., 0:h:step, :] * 0.25 + xp[..., 1:h + 1:step, :] * 0.5) + xp[..., 2:h + 2:step, :] * 0.25
+    y = (v[..., 0:w:step] * 0.25 + v[..., 1:w + 1:step] * 0.5) + v[..., 2:w + 2:step] * 0.25
     return y.to(x.dtype)
 
 
 def blur3_plain(x: torch.Tensor) -> torch.Tensor:
     """[1,2,1] x [1,2,1] / 16 blur with reflect padding: the vertical pass,
     then the horizontal one (the JAX package's ``blur3_xla`` order)."""
-    h, w = x.shape[-2:]
-    xp = F.pad(x.float(), (1, 1, 1, 1), mode="reflect")
-    v = (xp[..., 0:h, :] * 0.25 + xp[..., 1:h + 1, :] * 0.5) + xp[..., 2:h + 2, :] * 0.25
-    y = (v[..., 0:w] * 0.25 + v[..., 1:w + 1] * 0.5) + v[..., 2:w + 2] * 0.25
-    return y.to(x.dtype)
+    return _blur_plain(x, 1)
+
+
+def _check_down_shape(x: torch.Tensor) -> None:
+    if x.dim() != 4 or x.shape[2] < 2 or x.shape[3] < 2 or x.shape[2] % 2 or x.shape[3] % 2:
+        raise ValueError(
+            f"blur3_downsample2x: needs (B, C, H, W) with even H, W >= 2, got {tuple(x.shape)}")
+
+
+def blur3_downsample2x_plain(x: torch.Tensor) -> torch.Tensor:
+    """``blur3_plain`` at the even rows and columns only, with the same taps
+    in the same order: equal to ``blur3_plain(x)[..., ::2, ::2]``."""
+    _check_down_shape(x)
+    return _blur_plain(x, 2)
 
 
 # ------------------------------------------------------------ kernel launches
@@ -108,6 +137,9 @@ def _launch(name: str, x: torch.Tensor, out_shape) -> torch.Tensor:
 
 
 def _plain_vjp(plain: Callable, in_shape, g: torch.Tensor) -> torch.Tensor:
+    """The transpose of a linear op applied to ``g``: the vjp of its plain
+    version, evaluated at zero. It returns a value only; gradients through
+    it are the business of :class:`_Adjoint`."""
     with torch.enable_grad():
         x = torch.zeros(in_shape, dtype=g.dtype, device=g.device, requires_grad=True)
         (grad,) = torch.autograd.grad(plain(x), x, g)
@@ -123,43 +155,82 @@ def _check_device(name: str, x: torch.Tensor) -> bool:
     raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-class _Upsample2xBilinear(torch.autograd.Function):
+def _upsample_forward(x: torch.Tensor) -> torch.Tensor:
+    if not _check_device("upsample2x_bilinear", x):
+        return upsample2x_bilinear_plain(x)
+    n, c, h, w = x.shape
+    return _launch("upsample2x_bilinear", x, (n, c, 2 * h, 2 * w))
+
+
+def _blur_forward(x: torch.Tensor) -> torch.Tensor:
+    if not _check_device("blur3", x):
+        return blur3_plain(x)
+    if x.dim() == 4 and (x.shape[2] < 2 or x.shape[3] < 2):
+        raise ValueError("blur3: reflect padding needs H and W of at least 2")
+    return _launch("blur3", x, x.shape)
+
+
+def _blur_down_forward(x: torch.Tensor) -> torch.Tensor:
+    _check_down_shape(x)
+    if not _check_device("blur3_downsample2x", x):
+        return blur3_downsample2x_plain(x)
+    n, c, h, w = x.shape
+    return _launch("blur3_downsample2x", x, (n, c, h // 2, w // 2))
+
+
+# op name -> (forward: kernel on CUDA, plain version on CPU; plain version)
+_OPS = {
+    "upsample2x_bilinear": (_upsample_forward, upsample2x_bilinear_plain),
+    "blur3": (_blur_forward, blur3_plain),
+    "blur3_downsample2x": (_blur_down_forward, blur3_downsample2x_plain),
+}
+
+
+class _Op(torch.autograd.Function):
+    """A linear op; its backward is :class:`_Adjoint`, so gradients of any
+    order stay on the graph."""
+
     @staticmethod
-    def forward(ctx, x):
-        ctx.in_shape = x.shape
-        if not _check_device("upsample2x_bilinear", x):
-            return upsample2x_bilinear_plain(x)
-        n, c, h, w = x.shape
-        return _launch("upsample2x_bilinear", x, (n, c, 2 * h, 2 * w))
+    def forward(ctx, x, name):
+        ctx.name, ctx.in_shape = name, x.shape
+        return _OPS[name][0](x)
 
     @staticmethod
     def backward(ctx, g):
-        return _plain_vjp(upsample2x_bilinear_plain, ctx.in_shape, g)
+        return _Adjoint.apply(g, ctx.name, ctx.in_shape), None
 
 
-class _Blur3(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        ctx.in_shape = x.shape
-        if not _check_device("blur3", x):
-            return blur3_plain(x)
-        if x.dim() == 4 and (x.shape[2] < 2 or x.shape[3] < 2):
-            raise ValueError("blur3: reflect padding needs H and W of at least 2")
-        return _launch("blur3", x, x.shape)
+class _Adjoint(torch.autograd.Function):
+    """The transpose of op ``name``. Its own backward is the op's forward
+    again (the transpose of the transpose), which launches the op's kernel
+    on CUDA tensors: a double backward runs the forward kernels."""
 
     @staticmethod
-    def backward(ctx, g):
-        return _plain_vjp(blur3_plain, ctx.in_shape, g)
+    def forward(ctx, g, name, in_shape):
+        ctx.name = name
+        return _plain_vjp(_OPS[name][1], in_shape, g)
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _Op.apply(gg.contiguous(), ctx.name), None, None
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) -> (B, C, 2H, 2W) bilinear, half-pixel centres, edge
     clamp: ``nn.Upsample(scale_factor=2, mode='bilinear', align_corners=False)``.
     CUDA tensors run the hand-written kernel; CPU tensors the plain version."""
-    return _Upsample2xBilinear.apply(x)
+    return _Op.apply(x, "upsample2x_bilinear")
 
 
 def blur3(x: torch.Tensor) -> torch.Tensor:
     """3x3 normalised binomial blur with reflect padding, (B, C, H, W).
     CUDA tensors run the hand-written kernel; CPU tensors the plain version."""
-    return _Blur3.apply(x)
+    return _Op.apply(x, "blur3")
+
+
+def blur3_downsample2x(x: torch.Tensor) -> torch.Tensor:
+    """``blur3`` keeping the even rows and columns: (B, C, H, W) ->
+    (B, C, H/2, W/2) for even H, W >= 2. CUDA tensors run the hand-written
+    kernel, which never writes the full-resolution blur; CPU tensors the
+    plain version."""
+    return _Op.apply(x, "blur3_downsample2x")

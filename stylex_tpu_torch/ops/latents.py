@@ -1,5 +1,5 @@
 """Latent-space helpers: noise sampling, style broadcast and mixing,
-truncation, slerp.
+truncation, slerp, and the LPIPS input rescale.
 
 Randomness comes from an explicit ``torch.Generator``. It gives other
 numbers than ``jax.random`` from the same seed, so tests draw their inputs
@@ -13,10 +13,12 @@ import torch
 __all__ = [
     "latent_noise",
     "image_noise",
+    "mixing_cutoff",
     "expand_styles",
     "mixed_w_styles",
     "truncate_w",
     "slerp",
+    "lpips_normalize",
 ]
 
 
@@ -31,6 +33,11 @@ def image_noise(generator: torch.Generator, n: int, im_size: int,
     """Per-pixel uniform [0, 1) noise image, (n, S, S, 1) as the generator
     takes it."""
     return torch.rand(n, im_size, im_size, 1, generator=generator, dtype=dtype, device=device)
+
+
+def mixing_cutoff(generator: torch.Generator, num_layers: int, device=None) -> torch.Tensor:
+    """Random style-mixing cutoff layer in [0, num_layers), a 0-d int64."""
+    return torch.randint(0, num_layers, (), generator=generator, device=device)
 
 
 def expand_styles(w: torch.Tensor, num_layers: int) -> torch.Tensor:
@@ -60,3 +67,11 @@ def slerp(val, low: torch.Tensor, high: torch.Tensor) -> torch.Tensor:
     a = (torch.sin((1.0 - val) * omega) / so)[:, None]
     b = (torch.sin(val * omega) / so)[:, None]
     return a * low + b * high
+
+
+def lpips_normalize(images: torch.Tensor) -> torch.Tensor:
+    """Min-max rescale each image of a batch to [-1, 1] before the LPIPS net."""
+    flat = images.reshape(images.shape[0], -1)
+    _max = flat.amax(dim=1)[:, None, None, None]
+    _min = flat.amin(dim=1)[:, None, None, None]
+    return (images - _min) / (_max - _min) * 2.0 - 1.0

@@ -13,13 +13,15 @@ demodulation is a per-(sample, out-channel) scalar
     demod[b, o] = rsqrt(sum_{i,kh,kw} (W[o,i,kh,kw] * (style[b,i] + 1))^2 + eps)
 
 computed as ``(style+1)^2 @ sum_{kh,kw} W^2``. The convolution is one
-``F.conv2d`` with the shared weight; no per-sample weights are built.
+:func:`ops.conv.conv2d` with the shared weight; no per-sample weights are
+built.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+from stylex_tpu_torch.ops.conv import conv2d
 
 __all__ = ["demod_scale", "modulated_conv2d"]
 
@@ -52,7 +54,7 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, style: torch.Tensor,
     s = style + 1.0
     x = x * s[:, :, None, None].to(x.dtype)
     k = weight.shape[-1]
-    y = F.conv2d(x, weight.to(x.dtype), padding=(k - 1) // 2)
+    y = conv2d(x, weight.to(x.dtype), padding=(k - 1) // 2)
     if demod:
         d = demod_scale(weight, s, eps)
         y = y * d[:, :, None, None].to(y.dtype)

@@ -18,11 +18,81 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
+import subprocess
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_summary(prof, reps: int, window_ms: float):
+    """From a ``torch.profiler`` trace of ``reps`` repetitions over
+    ``window_ms`` of wall time: device time per kernel name per repetition
+    (sorted), its sum, the device's busy share of the window, and the
+    package's own kernels' time per repetition."""
+    from torch.autograd import DeviceType
+
+    # the device's own events (kernels, copies, memsets) only: the operator
+    # events that launch them carry the same time again, and so do the
+    # user annotations on the device's timeline (e.g. "Optimizer.step")
+    device_events = [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    per_name = {}
+    for e in device_events:
+        us, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    rows = [dict(name=k, ms_per_rep=us / 1e3 / reps, calls_per_rep=n / reps)
+            for k, (us, n) in per_name.items()]
+    rows.sort(key=lambda r: -r["ms_per_rep"])
+    device_ms = sum(r["ms_per_rep"] for r in rows)
+    # busy: the union of the device events' intervals, over the wall window
+    busy_us, last_end = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in device_events):
+        busy_us += max(0.0, end - max(start, last_end))
+        last_end = max(last_end, end)
+    ours = {k: sum(r["ms_per_rep"] for r in rows if f"{k}_kernel" in r["name"])
+            for k in ("upsample2x_bilinear", "blur3")}
+    return rows, device_ms, busy_us / 1e3 / window_ms, ours
+
+
+# kernel kinds by name, first match wins (cuDNN's layout transposes first)
+KINDS = (
+    ("hand-written kernels", ("upsample2x_bilinear_kernel", "blur3_kernel")),
+    ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolution and GEMM", ("xmma", "convolve", "cudnn", "gemm", "fft", "wgrad", "dgrad",
+                              "conv_depthwise", "cutlass", "pointwise_mult_and_sum_complex")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise, copy, fill", ("elementwise", "copy", "Fill")),
+)
+
+
+def by_kind(rows):
+    """Device ms per repetition summed by kernel kind."""
+    out = {kind: 0.0 for kind, _ in KINDS}
+    out["other"] = 0.0
+    for r in rows:
+        kind = next((k for k, keys in KINDS if any(key in r["name"] for key in keys)), "other")
+        out[kind] += r["ms_per_rep"]
+    return out
+
+
+def print_summary(rows, device_ms: float, ours, unit: str, top: int) -> None:
+    for kind, ms in by_kind(rows).items():
+        print(f"  {kind}: {ms:.4f} ms/{unit} ({ms / device_ms if device_ms else 0:.3f})")
+    for k, v in ours.items():
+        print(f"  {k}: {v:.4f} ms/{unit} ({v / device_ms if device_ms else 0:.3f} of device time)")
+    for r in rows[:top]:
+        print(f"  {r['ms_per_rep']:9.4f} ms  x{r['calls_per_rep']:5.1f}  {r['name'][:110]}")
 
 
 def main(argv=None) -> None:
@@ -32,7 +102,6 @@ def main(argv=None) -> None:
     p.add_argument("--out", default=None, help="write the table as JSON here")
     args = p.parse_args(argv)
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from stylex_tpu_torch.attfind.extraction import _phase1, _sweep_chunk
@@ -88,40 +157,20 @@ def main(argv=None) -> None:
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - t0) * 1e3
 
-    # the device's own events (kernels, copies, memsets) only: the operator
-    # events that launch them carry the same time again
-    device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    per_name = {}
-    for e in device_events:
-        us, n = per_name.get(e.name, (0.0, 0))
-        per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    rows = [dict(name=k, ms_per_chunk=us / 1e3 / reps, calls_per_chunk=n / reps)
-            for k, (us, n) in per_name.items()]
-    rows.sort(key=lambda r: -r["ms_per_chunk"])
-    device_ms = sum(r["ms_per_chunk"] for r in rows)
-    # busy: the union of the device events' intervals, over the wall window
-    busy_us, last_end = 0.0, float("-inf")
-    for start, end in sorted((e.time_range.start, e.time_range.end) for e in device_events):
-        busy_us += max(0.0, end - max(start, last_end))
-        last_end = max(last_end, end)
-    busy_share = busy_us / 1e3 / window_ms
-    ours = {k: sum(r["ms_per_chunk"] for r in rows if f"{k}_kernel" in r["name"])
-            for k in ("upsample2x_bilinear", "blur3")}
-    card = torch.cuda.get_device_name(device)
+    rows, device_ms, busy_share, ours = device_summary(prof, reps, window_ms)
+    card = card_line()
     print(f"{card} | bfloat16 | coord_batch {cb} | start_block {args.start_block}")
     print(f"chunk: {chunk_ms:.4f} ms (CUDA events) = {cb / chunk_ms * 1e3:.1f} styles/s; "
-          f"traced device time {device_ms:.4f} ms/chunk over {len(device_events)} device "
-          f"events; device busy {busy_share:.3f} of the traced window")
-    for k, v in ours.items():
-        print(f"  {k}: {v:.4f} ms/chunk ({v / device_ms if device_ms else 0:.3f} of device time)")
-    for r in rows[:args.top]:
-        print(f"  {r['ms_per_chunk']:9.4f} ms  x{r['calls_per_chunk']:5.1f}  {r['name'][:110]}")
+          f"traced device time {device_ms:.4f} ms/chunk over "
+          f"{sum(r['calls_per_rep'] for r in rows) * reps:.0f} device events; "
+          f"device busy {busy_share:.3f} of the traced window")
+    print_summary(rows, device_ms, ours, "chunk", args.top)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             card=card, dtype="bfloat16", coord_batch=cb, start_block=args.start_block,
             chunk_ms=chunk_ms, device_ms_per_chunk=device_ms,
-            busy_share=busy_share, ours_ms_per_chunk=ours, rows=rows,
+            busy_share=busy_share, ours_ms_per_chunk=ours, by_kind=by_kind(rows), rows=rows,
         ), indent=1))
 
 

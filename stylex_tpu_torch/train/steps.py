@@ -1,0 +1,391 @@
+"""The StylEx train step: the JAX package's fused-microbatch ("wide") step,
+in eager PyTorch.
+
+One call runs a whole optimizer step over ``gradient_accumulate_every``
+(A) micro-batches of B images, batched as A*B samples:
+
+1. D phase: w for every micro-batch (encoder micro-batches through E and
+   the classifier, prior ones through S with style mixing), fakes without
+   gradient, one D pass over [aug(fake); aug(real)], the hinge (or dual
+   contrastive) loss with per-micro-batch relativistic means, and on GP
+   steps the R1-style gradient penalty on the reals. D is updated before
+   the G phase runs.
+2. G phase: fakes with gradient, D scores with per-micro-batch top-k (or
+   the dual contrastive loss against detached real scores), on PL steps the
+   path-length penalty, and on encoder micro-batches the reconstruction
+   (LPIPS + L1) and classifier KL losses. encoder, S and G are updated.
+3. ``pl_mean`` (EMA 0.99 of the path length), the EMA copies ``SE``/``GE``
+   (every ``ema_every`` after ``ema_start_step``; reset to the live nets at
+   ``step % ema_reset_every == 2`` until ``ema_reset_until``), ``step + 1``.
+
+Micro-batches alternate prior (even) and encoder (odd) inputs, as the
+reference's loop does; rec/KL are doubled under the alternation (and always
+in the OLD arch). A*B samples are flattened micro-batch-major.
+
+Gradients come from ``torch.autograd.grad`` over explicit parameter lists;
+the frozen classifier and the EMA copies take none. Both penalties are
+second-order, so their gradients differentiate through the kernels'
+backward (``ops/blur.py``). Randomness arrives as a :class:`StepDraws`,
+from :func:`draw_step` or from the caller (the tests pass in the JAX
+package's draws).
+
+``compute_dtype='bfloat16'``: each net runs on bfloat16 copies of its
+float32 parameters, cast on the autograd graph inside the loss
+(``torch.func.functional_call``), with bfloat16 inputs; the float32 master
+weights receive the gradients. The classifier and LPIPS stay float32.
+``compute_dtype='float64'`` runs the same way on float64 copies, with
+losses and scores in float64: the witness that float32 rounding is measured
+against, on the CPU (the CUDA kernels take float32 and bfloat16), with a
+classifier in float64.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, NamedTuple, Optional
+
+import torch
+from torch.func import functional_call
+
+from stylex_tpu_torch.config import Arch, ModelConfig, TrainConfig
+from stylex_tpu_torch.device import resolve_dtype
+from stylex_tpu_torch.losses import (
+    classifier_kl_loss,
+    d_hinge_loss,
+    dual_contrastive_loss,
+    gradient_penalty,
+    path_lengths,
+    reconstruction_loss,
+)
+from stylex_tpu_torch.models.stylex import ema_update, make_w
+from stylex_tpu_torch.ops.diffaug import AugmentDraws, augment_for_discriminator, draw_augment
+from stylex_tpu_torch.train.state import TrainState, g_parameters
+
+__all__ = [
+    "PhaseDraws",
+    "StepDraws",
+    "draw_step",
+    "make_train_step",
+    "microbatch_schedule",
+    "step_flags",
+]
+
+
+class PhaseDraws(NamedTuple):
+    """The random draws of one phase. P is the number of prior
+    micro-batches, A the number of micro-batches, B the micro-batch size.
+
+    z1, z2: (P, B, mapping_dim) latents of the two mixed styles.
+    mixed: (P,) bool, whether the micro-batch mixes styles.
+    cutoff: (P,) int64 in [0, num_layers): the first layer that takes z2.
+    noise: (A, B, S, S, 1) uniform noise images.
+    aug_fake, aug_real: DiffAugment draws over the A*B fakes and reals, or
+      None without augmentation.
+    pl_noise: (A, B, C, S, S) unit normal projection noise of the
+      path-length penalty (G phase of a PL step), else None.
+    """
+
+    z1: torch.Tensor
+    z2: torch.Tensor
+    mixed: torch.Tensor
+    cutoff: torch.Tensor
+    noise: torch.Tensor
+    aug_fake: Optional[AugmentDraws]
+    aug_real: Optional[AugmentDraws]
+    pl_noise: Optional[torch.Tensor] = None
+
+
+class StepDraws(NamedTuple):
+    d: PhaseDraws
+    g: PhaseDraws
+
+
+def microbatch_schedule(accum: int, alternating: bool) -> List[bool]:
+    """Whether each micro-batch takes encoder input: odd ones under
+    alternating training, all of them otherwise."""
+    return [(not alternating) or i % 2 == 1 for i in range(accum)]
+
+
+def step_flags(tc: TrainConfig, step: int) -> Dict[str, bool]:
+    """Which periodic parts run at ``step``."""
+    return dict(
+        gp=step % tc.gp_every == 0,
+        pl=(not tc.no_pl_reg) and step > tc.pl_start_step and step % tc.pl_every == 0,
+        ema=step % tc.ema_every == 0 and step > tc.ema_start_step,
+        ema_reset=step <= tc.ema_reset_until and step % tc.ema_reset_every == 2,
+    )
+
+
+def draw_step(generator: torch.Generator, model_cfg: ModelConfig, train_cfg: TrainConfig,
+              batch_size: int, num_layers: int, aug_prob: float, step: int) -> StepDraws:
+    """Every random draw of step ``step``, on ``generator``'s device."""
+    tc, dev = train_cfg, generator.device
+    A, B, S = tc.gradient_accumulate_every, batch_size, model_cfg.image_size
+    P = A - sum(microbatch_schedule(A, tc.alternating_training))
+    channels = 4 if model_cfg.transparent else 3
+
+    def phase(with_pl: bool) -> PhaseDraws:
+        def randn(*shape):
+            return torch.randn(*shape, generator=generator, device=dev)
+
+        return PhaseDraws(
+            z1=randn(P, B, model_cfg.mapping_dim),
+            z2=randn(P, B, model_cfg.mapping_dim),
+            mixed=torch.rand(P, generator=generator, device=dev) < tc.mixed_prob,
+            cutoff=torch.randint(0, num_layers, (P,), generator=generator, device=dev),
+            noise=torch.rand(A, B, S, S, 1, generator=generator, device=dev),
+            aug_fake=draw_augment(generator, A, B, S, aug_prob, tc.aug_types),
+            aug_real=draw_augment(generator, A, B, S, aug_prob, tc.aug_types),
+            pl_noise=randn(A, B, channels, S, S) if with_pl else None,
+        )
+
+    return StepDraws(phase(False), phase(step_flags(tc, step)["pl"]))
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """(A, B, ...) -> (A*B, ...), micro-batch-major."""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:])
+
+
+def _images(x, device, dtype) -> torch.Tensor:
+    """(A, B, S, S, C) NHWC images, uint8 or float in [0, 1], -> ``dtype``
+    (A, B, C, S, S) on ``device``; uint8 is divided by 255 there."""
+    x = torch.as_tensor(x).to(device, non_blocking=True)
+    x = x.to(dtype) / 255.0 if x.dtype == torch.uint8 else x.to(dtype)
+    return x.permute(0, 1, 4, 2, 3).contiguous()
+
+
+def _cast(module: torch.nn.Module, dtype: torch.dtype) -> Callable:
+    """``module`` as a function that runs on ``dtype`` copies of its
+    parameters, cast on the autograd graph, with its floating inputs cast
+    to ``dtype``."""
+    if dtype == torch.float32:
+        return module
+    params = {n: p.to(dtype) for n, p in module.named_parameters()}
+
+    def call(*args):
+        args = tuple(a.to(dtype) if torch.is_tensor(a) and a.is_floating_point() else a
+                     for a in args)
+        return functional_call(module, params, args)
+
+    return call
+
+
+def _apply_grads(opt: torch.optim.Optimizer, params, grads) -> None:
+    for p, g in zip(params, grads, strict=True):
+        p.grad = g
+    opt.step()
+    for p in params:
+        p.grad = None
+
+
+def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                    classifier_fn: Callable[[torch.Tensor], torch.Tensor], lpips_params,
+                    aug_prob: Optional[float] = None):
+    """Build ``step(state, batch, draws) -> metrics``.
+
+    ``batch`` holds (A, B, S, S, C) NHWC image stacks, uint8 or float in
+    [0, 1], numpy or torch: ``d_real`` and ``d_enc`` (D phase), ``g_imgs``
+    (G phase), ``g_real`` with ``dual_contrast_loss``, and an optional int
+    ``top_k``. The step updates ``state`` in place and returns 0-d float32
+    tensors on the device: ``d_loss``, ``g_loss``, ``rec_loss``,
+    ``kl_loss``, ``gp``, ``pl_mean``. ``aug_prob`` overrides the config's
+    (None there means 0).
+    """
+    cfg, tc = model_cfg, train_cfg
+    if tc.cl_reg:
+        raise NotImplementedError("cl_reg (contrastive D regularisation) is not ported yet")
+    if cfg.fq_layers:
+        raise NotImplementedError("fq_layers (D feature quantization) is not ported yet")
+    if not tc.fused_microbatches:
+        raise NotImplementedError("only the fused-microbatch step is ported; "
+                                  "fused_microbatches=False is not")
+    A = tc.gradient_accumulate_every
+    schedule = microbatch_schedule(A, tc.alternating_training)
+    enc_idx = [i for i, f in enumerate(schedule) if f]
+    prior_idx = [i for i, f in enumerate(schedule) if not f]
+    dtype = torch.float64 if tc.compute_dtype == "float64" else resolve_dtype(tc.compute_dtype)
+    wide = torch.promote_types(dtype, torch.float32)  # images, scores and losses
+    L = int(math.log2(cfg.image_size)) - 1  # generator layers
+    new = cfg.arch == Arch.NEW
+    double = 2.0 if (cfg.arch == Arch.OLD or tc.alternating_training) else 1.0
+    eff_rec, eff_kl = double * tc.rec_scaling, double * tc.kl_scaling
+    aug_types = tuple(tc.aug_types)
+    if aug_prob is None:
+        aug_prob = tc.aug_prob if tc.aug_prob is not None else 0.0
+
+    def classify(x):
+        return classifier_fn(x.to(wide)).to(wide)
+
+    def augment(x, draws):
+        return augment_for_discriminator(x.to(dtype), draws if aug_prob > 0 else None, aug_types)
+
+    def assemble_w(nets, dr: PhaseDraws, imgs, logits_all, probs_all):
+        """(A, B, L, D) w in schedule order, with the encoder micro-batches'
+        encodings, images and logits (flattened), or Nones."""
+        B = imgs.shape[1]
+        parts: List[Optional[torch.Tensor]] = [None] * A
+        enc_out = enc_imgs = enc_logits = None
+        if enc_idx:
+            enc_imgs = _flat(imgs[enc_idx])
+            if logits_all is not None:
+                enc_logits = _flat(logits_all[enc_idx])
+            else:
+                with torch.no_grad():
+                    enc_logits = classify(enc_imgs)
+            enc_out = nets["encoder"](enc_imgs)
+            w = make_w(cfg, enc_out, enc_logits).to(dtype).reshape(len(enc_idx), B, 1, -1)
+            for j, i in enumerate(enc_idx):
+                parts[i] = w[j].expand(B, L, w.shape[-1])
+        if prior_idx:
+            P = len(prior_idx)
+            w1 = nets["S"](_flat(dr.z1)).reshape(P, B, 1, -1)
+            w2 = nets["S"](_flat(dr.z2)).reshape(P, B, 1, -1)
+            cut = torch.where(dr.mixed, dr.cutoff, torch.full_like(dr.cutoff, L))
+            first = (torch.arange(L, device=cut.device)[None, :] < cut[:, None]).to(w1.dtype)
+            first = first[:, None, :, None]  # (P, 1, L, 1)
+            w = w1 * first + w2 * (1.0 - first)
+            if new:
+                pb = probs_all[prior_idx][:, :, None, :].expand(P, B, L, cfg.num_classes)
+                w = torch.cat([w, pb.to(w.dtype)], dim=-1)
+            for j, i in enumerate(prior_idx):
+                parts[i] = w[j].to(dtype)
+        return torch.stack(parts), enc_out, enc_imgs, enc_logits
+
+    def nets_of(model, names):
+        return {name: _cast(getattr(model, name), dtype) for name in names}
+
+    def conditioning(imgs):
+        """NEW arch: (A, B, K) logits and probabilities of the real images."""
+        if not new:
+            return None, None
+        with torch.no_grad():
+            logits = classify(_flat(imgs)).reshape(imgs.shape[0], imgs.shape[1], -1)
+        return logits, torch.softmax(logits, dim=-1)
+
+    # ------------------------------------------------------------- D phase
+    def d_phase(state: TrainState, imgs, dr: PhaseDraws, apply_gp: bool):
+        model = state.model
+        d_real, d_enc = imgs["d_real"], imgs["d_enc"]
+        B = d_real.shape[1]
+        AB = A * B
+        logits_all, probs_all = conditioning(d_enc)
+        probs_flat = _flat(probs_all) if new else None
+        with torch.no_grad():
+            nets = nets_of(model, ("encoder", "S", "G"))
+            w_all, _, enc_imgs, enc_logits = assemble_w(nets, dr, d_enc, logits_all, probs_all)
+            fake = nets["G"](_flat(w_all), _flat(dr.noise))[0]
+
+        D = _cast(model.D, dtype)
+        real_flat = _flat(d_real)
+        probs2 = torch.cat([probs_flat, probs_flat]) if new else None
+        both = torch.cat([augment(fake, dr.aug_fake), augment(real_flat, dr.aug_real)])
+        scores = D(both, probs2).to(wide)
+        fake_s, real_s = scores[:AB].reshape(A, B), scores[AB:].reshape(A, B)
+        r, f = real_s, fake_s
+        if tc.rel_disc_loss:  # per-micro-batch means
+            r = real_s - fake_s.mean(dim=1, keepdim=True)
+            f = fake_s - real_s.mean(dim=1, keepdim=True)
+        if tc.dual_contrast_loss:
+            div = torch.stack([dual_contrastive_loss(r[i], f[i]) for i in range(A)]).mean()
+        else:
+            div = d_hinge_loss(r, f)
+        gp = torch.zeros((), device=div.device)
+        if apply_gp:
+            gp = gradient_penalty(lambda im: D(augment(im, dr.aug_real), probs_flat), real_flat)
+        d_grads = torch.autograd.grad(div + gp, list(model.D.parameters()))
+
+        gside = None
+        if tc.kl_rec_during_disc and new and enc_idx:
+            # rec/KL of the encoder micro-batches in float32, folded into
+            # the G update
+            enc_out = model.encoder(enc_imgs)
+            w = make_w(cfg, enc_out, enc_logits)[:, None].expand(-1, L, -1)
+            fake2 = model.G(w, _flat(dr.noise[enc_idx]))[0]
+            rec = tc.rec_scaling * reconstruction_loss(
+                lpips_params, enc_imgs, fake2, model.encoder(fake2), enc_out)
+            kl = tc.kl_scaling * classifier_kl_loss(enc_logits, classify(fake2))
+            gside = torch.autograd.grad((rec + kl) * (len(enc_idx) / A), g_parameters(model),
+                                        allow_unused=True)
+        return d_grads, gside, div.detach(), gp.detach()
+
+    # ------------------------------------------------------------- G phase
+    def g_phase(state: TrainState, imgs, dr: PhaseDraws, apply_pl: bool, top_k: int, gside):
+        model = state.model
+        g_imgs = imgs["g_imgs"]
+        B = g_imgs.shape[1]
+        zero = torch.zeros((), device=g_imgs.device)
+        logits_all, probs_all = conditioning(g_imgs)
+        probs_flat = _flat(probs_all) if new else None
+        nets = nets_of(model, ("encoder", "S", "G", "D"))
+        w_all, enc_out, enc_imgs, enc_logits = assemble_w(nets, dr, g_imgs, logits_all, probs_all)
+        w_flat, noise_flat = _flat(w_all), _flat(dr.noise)
+        fake = nets["G"](w_flat, noise_flat)[0]
+        fake_s = nets["D"](augment(fake, dr.aug_fake), probs_flat).to(wide).reshape(A, B)
+
+        if tc.dual_contrast_loss:
+            with torch.no_grad():
+                real_s = nets["D"](augment(_flat(imgs["g_real"]), dr.aug_real),
+                                   probs_flat).to(wide).reshape(A, B)
+            gen = torch.stack([dual_contrastive_loss(fake_s[i], real_s[i])
+                               for i in range(A)]).mean()
+        else:
+            # per-micro-batch top-k: the k smallest scores
+            ranked = fake_s.sort(dim=1).values
+            keep = (torch.arange(B, device=ranked.device) < top_k).to(ranked.dtype)
+            gen = ((ranked * keep).sum(dim=1) / max(top_k, 1)).mean()
+
+        pl_pen = pl_len = zero
+        if apply_pl:
+            if dr.pl_noise is None:
+                raise ValueError("a path-length step needs draws.g.pl_noise")
+            lengths = path_lengths(lambda w: nets["G"](w, noise_flat)[0], w_flat,
+                                   _flat(dr.pl_noise)).to(wide).reshape(A, B)
+            pens = (lengths - state.pl_mean).square().mean(dim=1)
+            pl_pen = torch.where(state.pl_mean >= 0, pens, torch.zeros_like(pens)).mean()
+            pl_len = lengths[-1].mean().detach()  # the last micro-batch's mean length
+
+        rec = kl = zero
+        if enc_idx:
+            fake_enc = _flat(fake.reshape(A, B, *fake.shape[1:])[enc_idx])
+            scale = len(enc_idx) / A
+            rec = eff_rec * scale * reconstruction_loss(
+                lpips_params, enc_imgs, fake_enc, nets["encoder"](fake_enc), enc_out)
+            kl = eff_kl * scale * classifier_kl_loss(enc_logits, classify(fake_enc))
+
+        params = g_parameters(model)
+        grads = torch.autograd.grad(gen + pl_pen + rec + kl, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if gside is not None:
+            grads = [g if s is None else g + s for g, s in zip(grads, gside)]
+        return grads, gen.detach(), rec.detach(), kl.detach(), pl_len
+
+    # ------------------------------------------------------------ full step
+    def step(state: TrainState, batch, draws: StepDraws) -> Dict[str, torch.Tensor]:
+        model = state.model
+        dev = state.device
+        keys = ("d_real", "d_enc", "g_imgs") + (("g_real",) if tc.dual_contrast_loss else ())
+        imgs = {k: _images(batch[k], dev, wide) for k in keys}
+        flags = step_flags(tc, state.step)
+        top_k = int(batch.get("top_k", imgs["g_imgs"].shape[1]))
+
+        d_grads, gside, div, gp = d_phase(state, imgs, draws.d, flags["gp"])
+        _apply_grads(state.d_opt, list(model.D.parameters()), d_grads)
+
+        g_grads, gen, rec, kl, pl_len = g_phase(state, imgs, draws.g, flags["pl"], top_k, gside)
+        _apply_grads(state.g_opt, g_parameters(model), g_grads)
+
+        if flags["pl"]:
+            state.pl_mean = torch.where(state.pl_mean < 0, pl_len,
+                                        state.pl_mean * 0.99 + 0.01 * pl_len)
+        with torch.no_grad():
+            for live, ema in ((model.S, model.SE), (model.G, model.GE)):
+                if flags["ema_reset"]:
+                    ema.load_state_dict(live.state_dict())
+                elif flags["ema"]:
+                    ema_update(ema, live, tc.ema_beta)
+        state.step += 1
+        return {"d_loss": div, "g_loss": gen, "rec_loss": rec, "kl_loss": kl, "gp": gp,
+                "pl_mean": state.pl_mean.detach().clone()}
+
+    return step

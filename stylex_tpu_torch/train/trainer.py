@@ -1,0 +1,298 @@
+"""Trainer: the host-side training loop around the train step.
+
+It owns model and optimizer construction, the data source (an image folder
+or the synthetic set, with the reference's automatic augmentation
+probability for small datasets), the step's random draws (a
+``torch.Generator`` on the device, seeded), checkpoints with the model's
+``.config.json``, the save and evaluate cadence, evaluation grids, and the
+NaN fault path: non-finite losses reload the latest checkpoint and raise
+:class:`NanException`, which the CLI retries.
+
+Runs on the GPU unless ``device='cpu'`` is given; without a GPU it raises.
+A float32 trainer turns TF32 off (:func:`set_float32_precision`), as the
+float32 AttFind sweep does.
+FID, the MNIST one-vs-all set and interpolation GIFs are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+import shutil
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from stylex_tpu_torch import __version__
+from stylex_tpu_torch.config import Arch, ModelConfig, TrainConfig
+from stylex_tpu_torch.data import FolderDataset, StepBatchLoader, SyntheticImageDataset
+from stylex_tpu_torch.device import resolve_device, set_float32_precision
+from stylex_tpu_torch.models.classifiers import build_classifier
+from stylex_tpu_torch.models.lpips import init_lpips_params, load_lpips_params
+from stylex_tpu_torch.models.stylex import build_stylex, make_w
+from stylex_tpu_torch.ops.latents import (
+    expand_styles,
+    image_noise,
+    latent_noise,
+    mixed_w_styles,
+    truncate_w,
+)
+from stylex_tpu_torch.train.state import TrainState, create_train_state
+from stylex_tpu_torch.train.steps import StepDraws, draw_step, make_train_step
+from stylex_tpu_torch.utils.checkpoint import (
+    checkpoint_path,
+    latest_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
+from stylex_tpu_torch.utils.image import save_image_grid
+from stylex_tpu_torch.utils.logging import MetricLogger
+
+__all__ = ["Trainer", "NanException"]
+
+
+class NanException(Exception):
+    """Losses went non-finite; the latest checkpoint has been reloaded."""
+
+
+class Trainer:
+    def __init__(self, name: str = "default", results_dir: str = "results",
+                 models_dir: str = "models", base_dir: str = "./",
+                 model_cfg: Optional[ModelConfig] = None,
+                 train_cfg: Optional[TrainConfig] = None, classifier_name: str = "resnet",
+                 classifier_path: Optional[str] = None, lpips_path: Optional[str] = None,
+                 seed: int = 42, device=None):
+        self.device = resolve_device(device)
+        self.name = name
+        base = Path(base_dir)
+        self.results_dir = base / results_dir
+        self.models_dir = base / models_dir
+        self.config_path = self.models_dir / name / ".config.json"
+        self.model_cfg = model_cfg or ModelConfig()
+        self.train_cfg = train_cfg or TrainConfig()
+        if not math.log2(self.model_cfg.image_size).is_integer():
+            raise ValueError("image size must be a power of 2")
+        if self.train_cfg.compute_dtype == "float32":
+            set_float32_precision()
+        self.seed = seed
+        self._classifier_name, self._classifier_path = classifier_name, classifier_path
+        self._build_classifier()
+        if lpips_path is not None:
+            self.lpips_params = load_lpips_params(lpips_path, self.device)
+        else:
+            print("[stylex_tpu_torch] no lpips_path: the reconstruction loss uses the seeded "
+                  "random AlexNet perceptual metric, not the pretrained LPIPS-alex")
+            self.lpips_params = init_lpips_params(device=self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.state: Optional[TrainState] = None
+        self._step_fn = None
+        self.loader: Optional[StepBatchLoader] = None
+        self.dataset = None
+        self.aug_prob = self.train_cfg.aug_prob
+        self.logger = MetricLogger(str(self.results_dir / name / "metrics.csv"))
+        self.init_folders()
+
+    # ------------------------------------------------------------------ setup
+    def _build_classifier(self) -> None:
+        cfg = self.model_cfg
+        self.classifier = build_classifier(self._classifier_name, cfg.image_size,
+                                           cfg.num_classes, self._classifier_path,
+                                           device=self.device)
+        self.classifier.net.requires_grad_(False)
+
+    @property
+    def steps(self) -> int:
+        return self.state.step if self.state is not None else 0
+
+    @property
+    def checkpoint_num(self) -> int:
+        return self.steps // self.train_cfg.save_every
+
+    def init_stylex(self) -> None:
+        """Build the model (from ``seed``), its optimizers and the step,
+        once."""
+        if self.state is not None:
+            return
+        model = build_stylex(self.model_cfg, seed=self.seed, device=self.device)
+        self.state = create_train_state(model, self.model_cfg, self.train_cfg)
+        self._build_step_fn()
+        self.write_config()
+
+    def _build_step_fn(self) -> None:
+        self._step_fn = make_train_step(self.model_cfg, self.train_cfg,
+                                        self.classifier.classify_images, self.lpips_params,
+                                        aug_prob=self.aug_prob or 0.0)
+
+    def init_folders(self) -> None:
+        (self.results_dir / self.name).mkdir(parents=True, exist_ok=True)
+        (self.models_dir / self.name).mkdir(parents=True, exist_ok=True)
+
+    def clear(self) -> None:
+        for d in (self.models_dir / self.name, self.results_dir / self.name):
+            shutil.rmtree(d, ignore_errors=True)
+        self.init_folders()
+
+    def write_config(self) -> None:
+        self.config_path.write_text(self.model_cfg.to_json())
+
+    def load_config(self) -> None:
+        if not self.config_path.exists():
+            return
+        cfg = ModelConfig.from_json(self.config_path.read_text())
+        if cfg != self.model_cfg:
+            if self.state is not None:
+                raise ValueError(f"{self.config_path} does not match the built model")
+            self.model_cfg = cfg
+            self._build_classifier()
+
+    # ------------------------------------------------------------------- data
+    def set_data_src(self, folder: str = "./", dataset_name: Optional[str] = None) -> None:
+        tc = self.train_cfg
+        if dataset_name == "synthetic":
+            self.dataset = SyntheticImageDataset(512, self.model_cfg.image_size)
+        elif dataset_name is None:
+            self.dataset = FolderDataset(folder, self.model_cfg.image_size,
+                                         transparent=self.model_cfg.transparent,
+                                         aug_prob=tc.dataset_aug_prob, seed=self.seed)
+        else:
+            raise NotImplementedError(f"dataset {dataset_name!r} is not ported yet")
+        kwargs = {} if tc.num_workers is None else {"num_workers": tc.num_workers}
+        if self.loader is not None:
+            self.loader.close()
+        self.loader = StepBatchLoader(self.dataset, tc.batch_size, tc.gradient_accumulate_every,
+                                      seed=self.seed, need_g_real=tc.dual_contrast_loss,
+                                      **kwargs)
+        if self.aug_prob is None and len(self.dataset) < 1e5:
+            self.aug_prob = min(0.5, (1e5 - len(self.dataset)) * 3e-6)
+            print(f"autosetting augmentation probability to {round(self.aug_prob * 100)}%")
+            if self.state is not None:
+                self._build_step_fn()
+
+    def close(self) -> None:
+        """Stop the loader's threads."""
+        if self.loader is not None:
+            self.loader.close()
+            self.loader = None
+
+    # ------------------------------------------------------------------ train
+    def _top_k(self, step: int) -> int:
+        tc = self.train_cfg
+        epochs = step * tc.batch_size * tc.gradient_accumulate_every / max(len(self.dataset), 1)
+        return math.ceil(tc.batch_size * max(tc.generator_top_k_gamma ** epochs,
+                                             tc.generator_top_k_frac))
+
+    def train(self, draws: Optional[StepDraws] = None) -> Dict[str, float]:
+        """One train step, then the save / evaluate cadence. ``draws``
+        defaults to the trainer's generator. Returns the step's metrics."""
+        if self.loader is None:
+            raise RuntimeError("call set_data_src before train")
+        self.init_stylex()
+        tc = self.train_cfg
+        step = self.steps
+        batch = next(self.loader)
+        if tc.top_k_training:
+            batch["top_k"] = self._top_k(step)
+        if draws is None:
+            draws = draw_step(self.generator, self.model_cfg, tc, tc.batch_size,
+                              self.state.model.num_layers, self.aug_prob or 0.0, step)
+        metrics = {k: float(v) for k, v in self._step_fn(self.state, batch, draws).items()}
+        if not (math.isfinite(metrics["g_loss"]) and math.isfinite(metrics["d_loss"])):
+            print(f"NaN detected for generator or discriminator at step {step}. "
+                  f"Loading the latest checkpoint")
+            self.load(-1)
+            raise NanException
+        self.logger.log(step, metrics)
+        if step % tc.save_every == 0:
+            self.save(step // tc.save_every)
+        if step % tc.evaluate_every == 0 or (step % 100 == 0 and step < 2500):
+            self.evaluate(encoder_input=tc.sample_from_encoder, num=step // tc.evaluate_every)
+        return metrics
+
+    # ----------------------------------------------------------- persistence
+    def save(self, num: int) -> str:
+        self.write_config()
+        return save_checkpoint(str(self.models_dir), self.name, num, self.state,
+                               extra={"version": __version__})
+
+    def load(self, num: int = -1) -> None:
+        """Restore checkpoint ``num`` (the latest for -1; none found: keep
+        the fresh model)."""
+        self.load_config()
+        self.init_stylex()
+        if num == -1:
+            found = latest_checkpoint(str(self.models_dir), self.name)
+            if found is None:
+                return
+            path = found[1]
+        else:
+            path = str(checkpoint_path(str(self.models_dir), self.name, num))
+        load_checkpoint(path, self.state)
+
+    # ------------------------------------------------------------ evaluation
+    @torch.no_grad()
+    def truncated_w(self, w: torch.Tensor) -> torch.Tensor:
+        """The truncation trick around the live S's mean w of 2000 z."""
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        z = latent_noise(gen, 2000, self.model_cfg.mapping_dim, device=self.device)
+        av = self.state.model.map_z(z).mean(dim=0, keepdim=True)
+        return truncate_w(w, av, self.train_cfg.trunc_psi)
+
+    @torch.no_grad()
+    def generate_images(self, w_styles, noise, ema: bool = False) -> np.ndarray:
+        rgb, _ = self.state.model.generate(w_styles, noise, ema=ema)
+        return rgb.clamp(0.0, 1.0).permute(0, 2, 3, 1).cpu().numpy()
+
+    def _uniform_probs(self, gen: torch.Generator, n: int) -> torch.Tensor:
+        p = torch.rand(n, self.model_cfg.num_classes, generator=gen, device=self.device)
+        return p / p.sum(dim=1, keepdim=True)
+
+    @torch.no_grad()
+    def evaluate(self, encoder_input: bool = False, num: int = 0) -> None:
+        """Sample grids, truncated: ``{num}.png`` (live nets),
+        ``{num}-ema.png`` (EMA nets), ``{num}-mr.png`` (style mixing, EMA)
+        and, with ``encoder_input``, ``{num}-from_encoder[-ema].png`` (real
+        images above their reconstructions)."""
+        self.init_stylex()
+        cfg, model = self.model_cfg, self.state.model
+        rows = self.train_cfg.num_image_tiles
+        total, L = rows * rows, model.num_layers
+        gen = torch.Generator(device=self.device).manual_seed(num)
+        noise = image_noise(gen, total, cfg.image_size, device=self.device)
+        out = self.results_dir / self.name
+
+        if encoder_input and self.loader is not None:
+            real = torch.as_tensor(next(self.loader.sample_loader)).to(self.device)
+            real = (real.float() / 255.0 if real.dtype == torch.uint8 else real.float())
+            real = real.permute(0, 3, 1, 2).contiguous()
+            logits = self.classifier.classify_images(real)
+            enc = model.encode(real)
+            if cfg.arch == Arch.NEW:
+                w = torch.cat([self.truncated_w(enc), torch.softmax(logits, dim=-1)], dim=-1)
+            else:
+                w = self.truncated_w(make_w(cfg, enc, logits))
+            enc_noise = noise[:real.shape[0]]
+            for ema, suffix in ((False, ""), (True, "-ema")):
+                fake = self.generate_images(expand_styles(w, L), enc_noise, ema=ema)
+                panel = np.concatenate([real.permute(0, 2, 3, 1).cpu().numpy(), fake])
+                save_image_grid(panel, str(out / f"{num}-from_encoder{suffix}.png"),
+                                real.shape[0])
+
+        z = latent_noise(gen, total, cfg.mapping_dim, device=self.device)
+        for ema, suffix in ((False, ""), (True, "-ema")):
+            w = self.truncated_w(model.map_z(z, ema=ema))
+            if cfg.arch == Arch.NEW:
+                w = torch.cat([w, self._uniform_probs(gen, total)], dim=-1)
+            save_image_grid(self.generate_images(expand_styles(w, L), noise, ema=ema),
+                            str(out / f"{num}{suffix}.png"), rows)
+
+        # style-mixing regularities: column styles below layer L // 2, row
+        # styles from it on
+        w1 = model.map_z(latent_noise(gen, rows, cfg.mapping_dim, device=self.device), ema=True)
+        w2 = model.map_z(latent_noise(gen, rows, cfg.mapping_dim, device=self.device), ema=True)
+        wmix = mixed_w_styles(w2.repeat(rows, 1), w1.repeat_interleave(rows, dim=0), L // 2, L)
+        if cfg.arch == Arch.NEW:
+            probs = self._uniform_probs(gen, total)[:, None].expand(total, L, cfg.num_classes)
+            wmix = torch.cat([wmix, probs], dim=-1)
+        save_image_grid(self.generate_images(wmix, noise, ema=True), str(out / f"{num}-mr.png"),
+                        rows)

@@ -70,7 +70,22 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("name", ["upsample2x_bilinear", "blur3"])
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from stylex_tpu_torch import cli
+    from stylex_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(base_dir=str(tmp_path), model_cfg=TINY, classifier_name="mobilenet")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--dataset-name", "synthetic", "--image-size", "16",
+                  "--results-dir", str(tmp_path / "r"), "--models-dir", str(tmp_path / "m")])
+    trainer = Trainer(base_dir=str(tmp_path), model_cfg=TINY, classifier_name="mobilenet",
+                      device="cpu")
+    assert trainer.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["upsample2x_bilinear", "blur3", "blur3_downsample2x"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wrappers_take_plain_path_on_cpu(monkeypatch, name, dtype):
     def no_build(*_):
@@ -78,10 +93,15 @@ def test_wrappers_take_plain_path_on_cpu(monkeypatch, name, dtype):
 
     monkeypatch.setattr(csrc, "load", no_build)
     before = dict(tblur.LAUNCHES)
-    x = torch.from_numpy(np.random.RandomState(0).randn(2, 3, 5, 6).astype(np.float32)).to(dtype)
+    shape = (2, 3, 6, 8) if name == "blur3_downsample2x" else (2, 3, 5, 6)
+    x = torch.from_numpy(np.random.RandomState(0).randn(*shape).astype(np.float32)).to(dtype)
+    x.requires_grad_(True)
     got = getattr(tblur, name)(x)
     want = getattr(tblur, f"{name}_plain")(x)
     assert got.dtype == dtype and torch.equal(got, want)
+    # backward and double backward stay on the plain path too
+    (g,) = torch.autograd.grad(got.float().square().sum(), x, create_graph=True)
+    torch.autograd.grad(g.float().square().sum(), x)
     assert tblur.LAUNCHES == before
 
 
@@ -91,6 +111,8 @@ def test_wrappers_refuse_other_devices():
         tblur.upsample2x_bilinear(x)
     with pytest.raises(ValueError, match="unsupported device"):
         tblur.blur3(x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tblur.blur3_downsample2x(x)
 
 
 def test_extraction_refuses_mismatched_dtype():
@@ -110,7 +132,11 @@ def test_kernel_library_path_tracks_the_source():
         assert (PKG / "csrc" / source).exists()
         path = csrc.library_path(name)
         assert path.parent == ROOT / "build" / "stylex_tpu_torch"
-        assert path.name.startswith(name + "-") and path.suffix == ".so"
+        assert path.name.startswith(Path(source).stem + "-") and path.suffix == ".so"
+    # one library per source: the blur and the blur with decimation share one
+    assert csrc.library_path("blur3") == csrc.library_path("blur3_downsample2x")
+    assert len({csrc.library_path(n) for n in csrc.KERNELS}) == len(
+        {source for source, _ in csrc.KERNELS.values()})
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

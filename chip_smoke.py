@@ -8,11 +8,14 @@ Phases, in order; any failure exits non-zero:
    builds every CUDA kernel of the package from its sources.
 2. Each kernel against its plain PyTorch version on the card, float32 and
    bfloat16, at the shapes the AttFind main path and the training path
-   (phase 5) give it (plus one 256px-scale upsample): max abs error against
-   the stated tolerance, and
-   CUDA-event times of the kernel, the plain version and the one-call
-   PyTorch yardstick, beside the least time the card's memory and float32
-   arithmetic rates allow.
+   (phase 5) give it (plus one 256px-scale upsample), at small and odd
+   widths, and on an input one element into its storage (misaligned): max
+   abs error against the stated tolerance. Then CUDA-event times per call
+   of the kernel's wrapper, the plain version and the one-call PyTorch
+   yardstick (host cost included); the kernel's device time alone (a CUDA
+   graph of 20 calls, replayed); the wrapper's host cost (host clock over
+   200 calls, no synchronise); and the least time the card's memory and
+   float32 arithmetic rates allow.
 3. The main path at full width: AttFind extraction at the 64px config
    (2464 StyleSpace coordinates, MobileNetV2 classifier, random weights from
    a seed), bfloat16, 4 images, ``coord_batch=616``; the block-resume sweep,
@@ -40,8 +43,14 @@ Phase 2 also holds the blur fused with 2x decimation, which no path runs,
 at the D/E shapes of training. The script prints a ``kernels`` JSON line
 and, last, the ``ok`` JSON line. Details go to
 ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --kernels-only [--package-root DIR --tag T]
+
+runs phases 1-2 alone; with ``--package-root`` it times the kernels of
+another checkout (an unpacked parent commit) with this script's phase 2.
 """
 
+import argparse
 import dataclasses
 import json
 import shutil
@@ -88,7 +97,8 @@ def peak_rates(name: str):
 
 
 def time_ms(fn, x, reps: int = 20, loops: int = 5) -> float:
-    """Median over ``loops`` of the CUDA-event time of ``reps`` calls / reps."""
+    """Median over ``loops`` of the CUDA-event time of ``reps`` calls / reps:
+    the time per call with the host's cost, as a caller meets it."""
     for _ in range(3):
         fn(x)
     torch.cuda.synchronize()
@@ -105,6 +115,49 @@ def time_ms(fn, x, reps: int = 20, loops: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, x, reps: int = 20, loops: int = 5) -> float:
+    """Median over ``loops`` of the CUDA-event time of one replay of a CUDA
+    graph that holds ``reps`` calls, / reps: the device's time per call,
+    without the host's."""
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up off the default stream, as capture needs
+            for _ in range(3):
+                fn(x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(loops):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def host_us(fn, x, calls: int = 200) -> float:
+    """Host-clock microseconds per call over ``calls`` calls, with no
+    synchronise between them: the host's cost of one call."""
+    fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(x)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
 def bf16_ulp(magnitude: float) -> float:
     return 2.0 ** (np.floor(np.log2(max(magnitude, 1e-30))) - 7)
 
@@ -112,11 +165,12 @@ def bf16_ulp(magnitude: float) -> float:
 # ------------------------------------------------------------------ phase 2
 
 
-def kernel_phase(card: str, rates):
-    import torch.nn.functional as F
-
-    from stylex_tpu_torch.ops import blur as ops
-
+def kernel_shapes():
+    """Phase 2's input shapes per kernel: ``chunk``, one AttFind sweep
+    chunk's calls (blur3_downsample2x: the D/E maps of one 32-image training
+    phase), which the ``kernels`` line sums; ``extra``, the other shapes of
+    the paths; ``ragged``, small and odd sizes; ``offset``, shapes whose
+    input is a contiguous view one element into its storage (misaligned)."""
     b = COORD_BATCH
     up_shapes = [(b, 512, 4, 4), (b, 256, 8, 8), (b, 128, 16, 16), (b, 64, 32, 32),
                  (b, 3, 4, 4), (b, 3, 8, 8), (b, 3, 16, 16), (b, 3, 32, 32)]
@@ -137,6 +191,26 @@ def kernel_phase(card: str, rates):
                   + [(t, 3, s, s) for s in (8, 16, 32, 64)])
     # G's block-entry and RGB-skip upsamples at 32
     up_train = [(t, *s[1:]) for s in up_shapes]
+    return {
+        "upsample2x_bilinear": dict(
+            chunk=up_shapes, extra=up_256px + up_train,
+            ragged=[(8, 3, 4, 1), (8, 3, 4, 2), (8, 3, 3, 5), (8, 3, 1, 4), (8, 3, 1, 1)],
+            offset=[(8, 3, 16, 16)]),
+        "blur3": dict(
+            chunk=blur_shapes, extra=blur_phase1 + blur_train,
+            ragged=[(8, 3, 2, 2), (8, 3, 5, 7), (8, 3, 2, 6), (8, 3, 7, 3)],
+            offset=[(8, 3, 16, 16)]),
+        "blur3_downsample2x": dict(
+            chunk=down_train, extra=[],
+            ragged=[(8, 3, 2, 2), (8, 3, 6, 10), (8, 3, 4, 12)],
+            offset=[(8, 3, 16, 16)]),
+    }
+
+
+def kernel_phase(card: str, rates):
+    import torch.nn.functional as F
+
+    from stylex_tpu_torch.ops import blur as ops
 
     def blur_library(x, stride=1):
         k = x.new_tensor([1.0, 2.0, 1.0])
@@ -150,26 +224,30 @@ def kernel_phase(card: str, rates):
             library=lambda x: F.interpolate(x, scale_factor=2, mode="bilinear",
                                             align_corners=False),
             # read x, write 4x; 3 two-tap sums (2 mul + 1 add) per output
-            bytes_per_in=5, flops_per_in=4 * 9, chunk=up_shapes, extra=up_256px + up_train),
+            bytes_per_in=5, flops_per_in=4 * 9),
         "blur3": dict(
             wrapper=ops.blur3, plain=ops.blur3_plain, library=blur_library,
             # read x, write x; 4 three-tap sums (3 mul + 2 add) per output
-            bytes_per_in=2, flops_per_in=4 * 5, chunk=blur_shapes,
-            extra=blur_phase1 + blur_train),
+            bytes_per_in=2, flops_per_in=4 * 5),
         "blur3_downsample2x": dict(
             wrapper=ops.blur3_downsample2x, plain=ops.blur3_downsample2x_plain,
             library=lambda x: blur_library(x, stride=2),
             # read x, write a quarter; 4 three-tap sums per kept output
-            bytes_per_in=1.25, flops_per_in=4 * 5 / 4, chunk=down_train, extra=[]),
+            bytes_per_in=1.25, flops_per_in=4 * 5 / 4),
     }
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, summary = [], {}
-    for name, sp in specs.items():
-        summary[name] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                             library_ms=0.0, bound_by=set())
+    for name, shapes in kernel_shapes().items():
+        sp = specs[name]
+        summary[name] = dict(max_abs_err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                             library_ms=0.0, bound_by=set(), host_us=[], host_us_grad=[])
+        # (shape, group, storage offset of the input in elements)
+        cases = [(s, group, int(group == "offset")) for group, ss in shapes.items() for s in ss]
         for dtype in (torch.float32, torch.bfloat16):
-            for shape in sp["chunk"] + sp["extra"]:
-                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape, group, offset in cases:
+                numel = int(np.prod(shape))
+                x = torch.randn(numel + offset, generator=gen, device="cuda").to(dtype)
+                x = x[offset:].view(shape)
                 y = sp["wrapper"](x)
                 want = sp["plain"](x)
                 torch.cuda.synchronize()
@@ -181,25 +259,59 @@ def kernel_phase(card: str, rates):
                 flop_ms = sp["flops_per_in"] * x.numel() / rates[1] * 1e3
                 bound = max(byte_ms, flop_ms)
                 bound_by = "bytes" if byte_ms >= flop_ms else "operations"
+                with torch.no_grad():  # as the AttFind sweep calls it
+                    h_us = host_us(sp["wrapper"], x)
+                with torch.enable_grad():  # as training calls it: through the autograd Function
+                    h_us_grad = host_us(sp["wrapper"], x.detach().requires_grad_(True))
                 row = dict(kernel=name, dtype=str(dtype).split(".")[-1], shape=list(shape),
-                           max_abs_err=err, tol=tol, ok=ok,
-                           ms=time_ms(sp["wrapper"], x), plain_ms=time_ms(sp["plain"], x),
+                           group=group, storage_offset=offset, max_abs_err=err, tol=tol, ok=ok,
+                           ms=time_ms(sp["wrapper"], x), device_ms=device_ms(sp["wrapper"], x),
+                           host_us=h_us, host_us_grad=h_us_grad,
+                           plain_ms=time_ms(sp["plain"], x),
                            library_ms=time_ms(sp["library"], x), bound_ms=bound,
-                           bound_by=bound_by,
-                           on_chunk=shape in sp["chunk"])
+                           bound_by=bound_by)
+                row["device_bound_share"] = bound / row["device_ms"]
                 rows.append(row)
-                log(f"  {name:20s} {row['dtype']:8s} {str(tuple(shape)):22s} err={err:.3g} "
-                    f"(tol {tol:.3g}) ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+                log(f"  {name:20s} {row['dtype']:8s} {str(tuple(shape)):22s}{'+1' if offset else '  '} "
+                    f"err={err:.3g} (tol {tol:.3g}) ms={row['ms']:.4f} "
+                    f"device_ms={row['device_ms']:.4f} ({row['device_bound_share']:.3f} of bound) "
+                    f"host_us={h_us:.2f}/{h_us_grad:.2f} plain={row['plain_ms']:.4f} "
                     f"library={row['library_ms']:.4f} bound={bound:.4f} ({bound_by}) [{card}]")
                 if not ok:
-                    raise AssertionError(f"{name} {row['dtype']} {shape}: error {err} > {tol}")
+                    raise AssertionError(f"{name} {row['dtype']} {shape}+{offset}: "
+                                         f"error {err} > {tol}")
                 s = summary[name]
                 s["max_abs_err"] = max(s["max_abs_err"], err)
-                if row["on_chunk"] and dtype == torch.bfloat16:
-                    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                s["host_us"].append(h_us)
+                s["host_us_grad"].append(h_us_grad)
+                if group == "chunk" and dtype == torch.bfloat16:
+                    for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
                         s[key] += row[key]
                     s["bound_by"].add(bound_by)
-    return rows, summary
+    for s in summary.values():  # median host cost per call over every shape
+        s["host_us"] = statistics.median(s["host_us"])
+        s["host_us_grad"] = statistics.median(s["host_us_grad"])
+    return rows, summary, host_breakdown(ops, card)
+
+
+def host_breakdown(ops, card: str):
+    """Where a wrapper call's host time goes: host microseconds per call of
+    its parts, one upsample at (616, 3, 4, 4) bf16 under no_grad (device
+    time 2 µs: launch-bound), beside one eager PyTorch op on the same
+    tensor."""
+    x = torch.randn(COORD_BATCH, 3, 4, 4, device="cuda").to(torch.bfloat16)
+    out = (COORD_BATCH, 3, 8, 8)
+    name = "upsample2x_bilinear"
+    parts = {
+        "torch.empty": lambda x: torch.empty(out, dtype=x.dtype, device=x.device),
+        "_launch (checks, empty, geometry, C call)": lambda x: ops._launch(name, x, out),
+        "wrapper": ops.upsample2x_bilinear,
+        "one eager op (torch.neg)": torch.neg,
+    }
+    with torch.no_grad():
+        got = {k: host_us(fn, x, calls=2000) for k, fn in parts.items()}
+    log("  host us per call: " + ", ".join(f"{k} {v:.2f}" for k, v in got.items()) + f" [{card}]")
+    return got
 
 
 # ------------------------------------------------------------------ phase 3
@@ -607,10 +719,19 @@ def train_card_vs_cpu_phase():
     return errs
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="phases 1-2 only; rows to chip_smoke_kernels[_TAG].json in the "
+                         "output directory")
+    ap.add_argument("--package-root", default=str(ROOT),
+                    help="import stylex_tpu_torch from this checkout (to time another commit's "
+                         "kernels with this script's phase 2)")
+    ap.add_argument("--tag", default="", help="suffix of the --kernels-only output file")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.package_root).resolve()))
     from stylex_tpu_torch import csrc
 
     OUT_DIR.mkdir(exist_ok=True)
@@ -626,7 +747,17 @@ def main() -> int:
     log(f"  built {sorted(paths)} in {time.perf_counter() - t:.2f} s")
 
     log("[phase 2] kernels against their plain versions")
-    rows, summary = kernel_phase(card, rates)
+    rows, summary, host_parts = kernel_phase(card, rates)
+    if args.kernels_only:
+        for s in summary.values():
+            s["bound_by"] = "+".join(sorted(s["bound_by"]))
+        out = OUT_DIR / f"chip_smoke_kernels{'_' + args.tag if args.tag else ''}.json"
+        out.write_text(json.dumps(dict(card=card, kind=kind, package_root=args.package_root,
+                                       kernel_rows=rows, summary=summary,
+                                       host_breakdown_us=host_parts), indent=1))
+        log(card)
+        print(json.dumps({"summary": summary}), flush=True)
+        return 0
 
     log("[phase 3] main path: AttFind extraction, 64px, bf16, full width")
     main_out, checks, ranked = main_path_phase(card)
@@ -654,14 +785,15 @@ def main() -> int:
              launches_flat=main_out["flat"]["launches"][name],
              launches_train=train_out["float32"]["launches"][name],
              launches_train_bf16=train_out["bfloat16"]["launches"][name],
-             max_abs_err=s["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
-             bound_ms=s["bound_ms"], bound_by="+".join(sorted(s["bound_by"])),
-             library_ms=s["library_ms"])
+             max_abs_err=s["max_abs_err"], ms=s["ms"], device_ms=s["device_ms"],
+             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
+             bound_by="+".join(sorted(s["bound_by"])), library_ms=s["library_ms"],
+             host_us=s["host_us"], host_us_grad=s["host_us_grad"])
         for name, s in summary.items()
     ]
     detail = dict(
         card=card, kind=kind, torch=torch.__version__, cuda=torch.version.cuda,
-        kernel_rows=rows, kernels=kernels,
+        kernel_rows=rows, kernels=kernels, host_breakdown_us=host_parts,
         main_path={k: {kk: vv for kk, vv in v.items() if kk != "records"}
                    for k, v in main_out.items()},
         main_path_checks=checks, ranked=ranked,
@@ -670,10 +802,11 @@ def main() -> int:
         seconds=time.perf_counter() - t_start,
     )
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
-    log(f"done in {detail['seconds']:.1f} s; kernel ms, plain_ms, library_ms and bound_ms are "
-        f"bf16 sums over one sweep chunk's calls (blur3_downsample2x: over the D/E shapes of "
-        f"one 32-image training phase); launches from the block-resume run, launches_train "
-        f"from the 6 float32 training steps")
+    log(f"done in {detail['seconds']:.1f} s; kernel ms, device_ms, plain_ms, library_ms and "
+        f"bound_ms are bf16 sums over one sweep chunk's calls (blur3_downsample2x: over the D/E "
+        f"shapes of one 32-image training phase); host_us and host_us_grad the median host cost "
+        f"per wrapper call over every phase-2 shape, without and with autograd; launches from "
+        f"the block-resume run, launches_train from the 6 float32 training steps")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,16 +2,19 @@
 
 Each ``*.cu`` file here is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, under ``build/stylex_tpu_torch/``
-at the root of the checkout, named by a hash of its source and flags: a
-changed source builds anew, an unchanged one is loaded as built. Missing
-libraries are built in parallel, one ``nvcc`` per source, all started
-together. Nothing is compiled or loaded when this module is imported.
+at the root of the checkout, named by a hash of its source, the shared
+headers (``*.cuh``) and the flags: a changed source builds anew, an
+unchanged one is loaded as built. Missing libraries are built in parallel,
+one ``nvcc`` per source, all started together. Nothing is compiled or
+loaded when this module is imported.
 
 Every C entry point has the signature
-``int fn(const void* x, void* y, long long planes, int h, int w,
-int max_blocks, int device, void* stream)``, where ``h`` and ``w`` are the
-input's size, and returns ``cudaGetLastError()`` after its launch. Kernel
-names that share a source share its one library.
+``int fn(const void* x, void* y, int planes, int h, int w, int vec,
+int blocks, int device, void* stream)``, where ``h`` and ``w`` are the
+input's size, ``vec`` the columns of a thread's segment and ``blocks`` the
+grid of 256-thread blocks (both from ``ops.blur.launch_geometry``), and
+returns ``cudaGetLastError()`` after its launch. Kernel names that share a
+source share its one library.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ NVCC_FLAGS = (
 )
 
 _ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 
@@ -63,9 +66,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of kernel ``name`` (its source's) is or will be built."""
+    """Where the library of kernel ``name`` (its source's) is or will be built:
+    named by a hash of the source, the shared headers and the flags."""
     src = _HERE / KERNELS[name][0]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(_HERE.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
 
 

@@ -9,34 +9,45 @@
 //
 // rows first, then columns, as the Pallas kernel orders them.
 //
-// Bound on this card: bytes. Each output element costs 6 multiply-adds and
-// the op reads B*C*H*W and writes 4*B*C*H*W elements, so the least time is
-// 5*B*C*H*W*itemsize over the memory rate; the arithmetic is far below the
-// card's rate.
+// Bound on this card: bytes. The op reads B*C*H*W and writes 4*B*C*H*W
+// elements, so the least time is 5*B*C*H*W*itemsize over the memory rate;
+// 6 multiply-adds per output are far below the card's arithmetic rate. What
+// keeps a kernel from that bound here is instructions, not arithmetic: index
+// math per element, and many narrow accesses.
 //
-// Design: one thread per output element in a grid-stride loop with 64-bit
-// indexing (a sweep chunk holds more than 1e8 elements). Neighbouring threads
-// write neighbouring output columns, so stores coalesce; the four input taps
-// of a 2x2 output quad are the same elements, which L1 serves. Arithmetic is
-// in float with explicit round-to-nearest operations (no fused multiply-add),
-// so the float result equals the plain PyTorch version bit for bit and the
-// bfloat16 result is that float value rounded once. Shared-memory tiles and
-// 16-byte vector stores are left for later work.
+// Design: one thread per segment of one output row of one plane: V input
+// columns, 2V outputs. It loads its centre input row iy = oy/2 and the
+// neighbour row (iy-1 for an even output row, iy+1 for an odd one,
+// edge-clamped) over its V columns as one vector each, plus the clamped
+// column on either side (L1 hits: the neighbouring thread loads them as part
+// of its vector; at a plane's edge the clamp takes them from the vector
+// itself), computes the vertical pass of its V+2 columns, then the
+// horizontal pass, and writes its 2V outputs with one store (16 bytes at the
+// widest V). Threads are numbered with the segment fastest, then the output
+// row, then the plane, so a warp's stores cover one contiguous stretch of
+// the output at every width. At W = 4 an output row is 16 bytes, and a
+// thread that wrote both output rows under an input row (one 3-row load for
+// two stores) left each store instruction writing half of every 32-byte
+// sector; measured on the H100, that layout took 0.364 ms for the sweep
+// chunk's upsamples, this one 0.292 ms. The plane, row and segment come from
+// one 32-bit division and one remainder per thread, not per element, and a
+// block of 256 threads spans as many small planes as fit.
+//
+// V is chosen by the wrapper (ops/blur.py, launch_geometry): the largest of
+// 8 bytes of input (bf16 4, f32 2: a 16-byte store per output row), then
+// halves, such that W is a multiple of V and both pointers are aligned to the
+// vector accesses. Odd W and an input at an odd element offset take V = 1
+// (scalar accesses, same arithmetic). The wrapper also splits a call whose
+// thread count would pass 2^31 - 1 into several launches.
+//
+// Arithmetic is in float with explicit round-to-nearest operations (no fused
+// multiply-add), in the plain version's order, so the float result equals
+// the plain PyTorch version bit for bit and the bfloat16 result is that float
+// value rounded once. bfloat16 values move as their raw 16-bit patterns.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "vec.cuh"
 
 namespace {
-
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // one tap pair: w_near * near + w_cur * cur, each product and the sum
 // rounded separately, as two PyTorch elementwise ops round them
@@ -44,56 +55,91 @@ __device__ __forceinline__ float tap2(float w_a, float a, float w_b, float b) {
   return __fadd_rn(__fmul_rn(w_a, a), __fmul_rn(w_b, b));
 }
 
-template <typename T>
-__global__ void upsample2x_bilinear_kernel(const T* __restrict__ x, T* __restrict__ y,
-                                           int64_t planes, int h, int w) {
-  const int oh = 2 * h, ow = 2 * w;
-  const int64_t plane_out = (int64_t)oh * ow;
-  const int64_t total = planes * plane_out;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += stride) {
-    const int64_t p = idx / plane_out;
-    const int rem = (int)(idx - p * plane_out);
-    const int oy = rem / ow;
-    const int ox = rem - oy * ow;
-    const int iy = oy >> 1, ix = ox >> 1;
-    const int ny = (oy & 1) ? min(iy + 1, h - 1) : max(iy - 1, 0);
-    const int nx = (ox & 1) ? min(ix + 1, w - 1) : max(ix - 1, 0);
-    const T* xp = x + p * h * (int64_t)w;
-    // rows: 0.75 on the centre row, 0.25 on the neighbour row
-    const float r_c = tap2(0.25f, load_f(xp + (int64_t)ny * w + ix), 0.75f,
-                           load_f(xp + (int64_t)iy * w + ix));
-    const float r_n = tap2(0.25f, load_f(xp + (int64_t)ny * w + nx), 0.75f,
-                           load_f(xp + (int64_t)iy * w + nx));
-    // columns: the same weights across the two row results
-    store_f(y + idx, tap2(0.25f, r_n, 0.75f, r_c));
-  }
+// columns c0-1 .. c0+V of one input row (p points at column c0), clamped
+// to the row, as floats
+template <typename R, int V>
+__device__ __forceinline__ void load_clamped(const R* p, int c0, int w, float (&v)[V + 2]) {
+  R r[V];
+  load_raw<V>(p, r);
+#pragma unroll
+  for (int i = 0; i < V; ++i) v[i + 1] = to_f(r[i]);
+  v[0] = c0 > 0 ? to_f(__ldg(p - 1)) : v[1];
+  v[V + 1] = c0 + V < w ? to_f(__ldg(p + V)) : v[V];
 }
 
-template <typename T>
-int launch(const void* x, void* y, long long planes, int h, int w, int max_blocks,
-           int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// the output row from one row of vertical results (columns c0-1 .. c0+V)
+template <typename R, int V>
+__device__ __forceinline__ void store_row(R* out, const float (&r)[V + 2]) {
+  R o[2 * V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    from_f(tap2(0.25f, r[j], 0.75f, r[j + 1]), o[2 * j]);
+    from_f(tap2(0.25f, r[j + 2], 0.75f, r[j + 1]), o[2 * j + 1]);
+  }
+  store_raw<(V > 1 ? 2 * V : 1)>(out, o);  // V = 1: scalar accesses
+}
+
+// planes * 2h * (w / V) threads, one per (plane, output row, segment of V
+// input columns); the wrapper guarantees that product is below 2^31
+template <typename R, int V>
+__global__ void __launch_bounds__(THREADS)
+upsample2x_bilinear_kernel(const R* __restrict__ x, R* __restrict__ y, int planes, int h,
+                           int w) {
+  const int segs = w / V;
+  const unsigned unit = blockIdx.x * blockDim.x + threadIdx.x;
+  if (unit >= (unsigned)(planes * 2 * h * segs)) return;
+  const int orow = (int)unit / segs;  // plane * 2h + output row
+  const int c0 = ((int)unit - orow * segs) * V;
+  const int row = orow >> 1;  // plane * h + input row iy
+  const int iy = row % h;
+  const R* centre = x + (int64_t)row * w + c0;
+  // the neighbour row: iy-1 for an even output row, iy+1 for an odd one
+  const R* near = (orow & 1) ? (iy < h - 1 ? centre + w : centre) : (iy > 0 ? centre - w : centre);
+  float a[V + 2], m[V + 2];
+  load_clamped<R, V>(near, c0, w, a);
+  load_clamped<R, V>(centre, c0, w, m);
+  // rows: 0.75 on the centre row, 0.25 on the neighbour row
+  float r[V + 2];
+#pragma unroll
+  for (int j = 0; j < V + 2; ++j) r[j] = tap2(0.25f, a[j], 0.75f, m[j]);
+  // columns: the same weights across the row's results
+  store_row<R, V>(y + (int64_t)orow * 2 * w + 2 * c0, r);
+}
+
+template <typename R, int V>
+int launch(const void* x, void* y, int planes, int h, int w, int blocks, int device,
+           void* stream) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  const long long total = planes * 4LL * h * w;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > max_blocks) blocks = max_blocks;
-  if (blocks < 1) blocks = 1;
-  upsample2x_bilinear_kernel<T><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (T*)y, (int64_t)planes, h, w);
+  upsample2x_bilinear_kernel<R, V><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const R*)x, (R*)y, planes, h, w);
   return (int)cudaGetLastError();
+}
+
+// V up to 8 bytes of input: a 16-byte store per output row
+template <typename R>
+int dispatch(const void* x, void* y, int planes, int h, int w, int vec, int blocks,
+             int device, void* stream) {
+  switch (vec) {
+    case 1: return launch<R, 1>(x, y, planes, h, w, blocks, device, stream);
+    case 2: return launch<R, 2>(x, y, planes, h, w, blocks, device, stream);
+    case 4:
+      if constexpr (sizeof(R) == 2) return launch<R, 4>(x, y, planes, h, w, blocks, device, stream);
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int upsample2x_bilinear_f32(const void* x, void* y, long long planes, int h,
-                                       int w, int max_blocks, int device, void* stream) {
-  return launch<float>(x, y, planes, h, w, max_blocks, device, stream);
+extern "C" int upsample2x_bilinear_f32(const void* x, void* y, int planes, int h, int w,
+                                       int vec, int blocks, int device, void* stream) {
+  return dispatch<float>(x, y, planes, h, w, vec, blocks, device, stream);
 }
 
-extern "C" int upsample2x_bilinear_bf16(const void* x, void* y, long long planes, int h,
-                                        int w, int max_blocks, int device, void* stream) {
-  return launch<__nv_bfloat16>(x, y, planes, h, w, max_blocks, device, stream);
+extern "C" int upsample2x_bilinear_bf16(const void* x, void* y, int planes, int h, int w,
+                                        int vec, int blocks, int device, void* stream) {
+  return dispatch<unsigned short>(x, y, planes, h, w, vec, blocks, device, stream);
 }

@@ -10,7 +10,10 @@ to the plain version.
 All three ops are linear. The backward of each is its transpose, an
 autograd Function of its own (the plain version's vjp) whose backward is the
 op again, so second derivatives (the gradient penalty, the path-length
-penalty) differentiate through the op exactly and launch its kernel.
+penalty) differentiate through the op exactly and launch its kernel. Where
+no graph is recorded (grad off, or an input that needs none) the wrappers
+call the forward directly: the Function would record nothing and costs
+host time on every call.
 
 The plain versions compute in float32 (float64 for float64 input) and round
 once to the input dtype, as the kernels do; with the same order of operations the float32 results
@@ -22,7 +25,6 @@ it.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Callable, Dict
 
@@ -108,10 +110,49 @@ def blur3_downsample2x_plain(x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------ kernel launches
 
 
-@functools.lru_cache(maxsize=None)
-def _max_blocks(device_index: int) -> int:
-    # enough 256-thread blocks to fill every SM; the kernels loop over the rest
-    return torch.cuda.get_device_properties(device_index).multi_processor_count * 8
+THREADS = 256  # per block, as the kernels are compiled
+_MAX_UNITS = 2**31 - 1  # the kernels number their threads in 32 bits
+
+# kernel -> (input columns, output columns) per column of a thread's segment
+_SEGMENT = {"upsample2x_bilinear": (1, 2), "blur3": (1, 1), "blur3_downsample2x": (2, 1)}
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_geometry(name: str, planes: int, h: int, w: int, itemsize: int, x_addr: int,
+                    y_addr: int):
+    """How kernel ``name`` covers ``planes`` input planes of (h, w).
+
+    Each thread takes one segment of one output row: ``vec`` input columns
+    (2 * ``vec`` outputs) for the upsample, ``vec`` outputs for the blurs.
+    ``vec`` is the widest that keeps every vector access within 16 bytes
+    and aligned, given the addresses' residues mod 16 (``x_addr``,
+    ``y_addr``), and divides the row: odd widths and misaligned inputs take
+    1, scalar accesses. Returns ``(vec, rows, segs, launches)``: ``rows``
+    and ``segs`` the thread rows and segments per plane, ``launches`` a
+    tuple of ``(first plane, planes, blocks)``, one per launch, each under
+    2^31 threads (one launch at every shape the paths give).
+    """
+    x_cols, y_cols = _SEGMENT[name]
+    rows, cols = {"upsample2x_bilinear": (2 * h, w), "blur3": (h, w),
+                  "blur3_downsample2x": (h // 2, w // 2)}[name]
+    vec = 16 // (max(x_cols, y_cols) * itemsize)
+    while vec > 1 and (cols % vec or x_addr % (vec * x_cols * itemsize)
+                       or y_addr % (vec * y_cols * itemsize)):
+        vec //= 2
+    segs = cols // vec
+    per_plane = rows * segs
+    if per_plane > _MAX_UNITS:
+        raise ValueError(f"{name}: a plane of {h}x{w} needs more than 2^31 threads")
+    step = _MAX_UNITS // per_plane  # planes per launch
+    launches = []
+    for p0 in range(0, planes, step):
+        n = min(step, planes - p0)
+        launches.append((p0, n, -(-n * per_plane // THREADS)))
+    return vec, rows, segs, tuple(launches)
+
+
+# (kernel name, dtype) -> its C function, resolved at first use
+_FUNCTIONS: Dict[tuple, Callable] = {}
 
 
 def _launch(name: str, x: torch.Tensor, out_shape) -> torch.Tensor:
@@ -119,20 +160,25 @@ def _launch(name: str, x: torch.Tensor, out_shape) -> torch.Tensor:
         raise TypeError(f"{name}: CUDA kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{name}: CUDA kernel takes a contiguous NCHW tensor")
-    fn = getattr(csrc.load(name), f"{name}_{_SUFFIX[x.dtype]}")
+    fn = _FUNCTIONS.get((name, x.dtype))
+    if fn is None:
+        fn = _FUNCTIONS[name, x.dtype] = getattr(csrc.load(name), f"{name}_{_SUFFIX[x.dtype]}")
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    n, c, h, w = x.shape
     if y.numel() == 0:
         return y
-    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-        n * c, h, w, _max_blocks(index), index, ctypes.c_void_p(stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    n, c, h, w = x.shape
+    size = x.element_size()
+    x_ptr, y_ptr = x.data_ptr(), y.data_ptr()
+    vec, _, _, launches = launch_geometry(name, n * c, h, w, size, x_ptr % 16, y_ptr % 16)
+    index = x.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    x_plane, y_plane = h * w * size, out_shape[2] * out_shape[3] * size
+    for p0, planes, blocks in launches:
+        err = fn(x_ptr + p0 * x_plane, y_ptr + p0 * y_plane, planes, h, w, vec, blocks, index,
+                 stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+        LAUNCHES[name] += 1
     return y
 
 
@@ -215,17 +261,24 @@ class _Adjoint(torch.autograd.Function):
         return _Op.apply(gg.contiguous(), ctx.name), None, None
 
 
+def _apply(x: torch.Tensor, name: str) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Op.apply(x, name)
+    # nothing to record: the forward alone, without the Function's host cost
+    return _OPS[name][0](x)
+
+
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) -> (B, C, 2H, 2W) bilinear, half-pixel centres, edge
     clamp: ``nn.Upsample(scale_factor=2, mode='bilinear', align_corners=False)``.
     CUDA tensors run the hand-written kernel; CPU tensors the plain version."""
-    return _Op.apply(x, "upsample2x_bilinear")
+    return _apply(x, "upsample2x_bilinear")
 
 
 def blur3(x: torch.Tensor) -> torch.Tensor:
     """3x3 normalised binomial blur with reflect padding, (B, C, H, W).
     CUDA tensors run the hand-written kernel; CPU tensors the plain version."""
-    return _Op.apply(x, "blur3")
+    return _apply(x, "blur3")
 
 
 def blur3_downsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -233,4 +286,4 @@ def blur3_downsample2x(x: torch.Tensor) -> torch.Tensor:
     (B, C, H/2, W/2) for even H, W >= 2. CUDA tensors run the hand-written
     kernel, which never writes the full-resolution blur; CPU tensors the
     plain version."""
-    return _Op.apply(x, "blur3_downsample2x")
+    return _apply(x, "blur3_downsample2x")

@@ -60,14 +60,18 @@ def device_summary(prof, reps: int, window_ms: float):
     for start, end in sorted((e.time_range.start, e.time_range.end) for e in device_events):
         busy_us += max(0.0, end - max(start, last_end))
         last_end = max(last_end, end)
-    ours = {k: sum(r["ms_per_rep"] for r in rows if f"{k}_kernel" in r["name"])
-            for k in ("upsample2x_bilinear", "blur3")}
+    ours = {k: sum(r["ms_per_rep"] for r in rows if symbol in r["name"])
+            for k, symbol in OWN_KERNELS.items()}
     return rows, device_ms, busy_us / 1e3 / window_ms, ours
 
 
+# the package's kernels: name -> a substring of their symbols (csrc/*.cu;
+# blur3_kernel is both blur variants)
+OWN_KERNELS = {"upsample2x_bilinear": "upsample2x_bilinear_kernel", "blur3": "blur3_kernel"}
+
 # kernel kinds by name, first match wins (cuDNN's layout transposes first)
 KINDS = (
-    ("hand-written kernels", ("upsample2x_bilinear_kernel", "blur3_kernel")),
+    ("hand-written kernels", tuple(OWN_KERNELS.values())),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolution and GEMM", ("xmma", "convolve", "cudnn", "gemm", "fft", "wgrad", "dgrad",
                               "conv_depthwise", "cutlass", "pointwise_mult_and_sum_complex")),

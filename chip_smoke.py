@@ -27,17 +27,32 @@ Phases, in order; any failure exits non-zero:
 5. The training path at full width: the CLI's defaults (64px, capacity 16,
    OLD arch, ResNet-18 classifier, batch 4 x 8 micro-batches, the 512-image
    synthetic set), float32, 6 ``Trainer.train()`` steps with GP at steps 0
-   and 4, PL at step 4, the EMA reset at step 2 and an EMA update at step 4.
-   Losses must stay finite, the weights move, and the upsample and blur
-   kernels launch. Then 2 bfloat16 steps, which must stay finite.
+   and 4, PL at step 4, the EMA reset at step 2 and an EMA update at step 4,
+   on the default (fused) resample graph, then the same 6 steps forced onto
+   the literal graph (``prefer_literal_resample``). Losses must stay
+   finite, the weights move, and the upsample and blur kernels launch in
+   both. Then 2 bfloat16 steps (fused), which must stay finite. Each run
+   reports ms/step, peak memory and launches.
 6. Precision against a float64 witness on the CPU: the trainable convs of
    the step alone (output, input and weight gradients; the im2col path
-   held, cuDNN reported), then one train step at full width, batch 2 x 2,
-   float32 with TF32 off, GP and PL on, the same weights and draws on the
-   CPU in float64 and float32 and on the card; losses and gradients per
-   tree of both float32 runs against the witness and of the card against
-   the CPU (held), and of the card with every convolution in cuDNN
-   (reported).
+   held, cuDNN reported), then one train step on the default (fused) graph
+   at full width, batch 2 x 2, float32 with TF32 off, GP and PL on, the
+   same weights and draws on the CPU in float64 and float32 and on the
+   card. As trained, the step has kinks (leaky ReLU, ReLU, max pooling)
+   at which float32 rounding flips single activations: its losses are
+   held, its gradients reported beside the CPU's own spread under a 1e-6
+   weight perturbation and the card with every convolution in cuDNN. With
+   the kinks smoothed (``smooth_kinks``) losses and gradients per tree of
+   both float32 runs against the witness and of the card against the CPU
+   are held.
+7. The model and step options at full width: ``ModelConfig()`` with
+   attention (``attn_layers=(1, 2)``), the ``no_const`` stem and a quantize
+   layer (``fq_layers=(2,)``), trained with ``cl_reg`` by the scan step
+   (``fused_microbatches=False``), float32, 3 ``Trainer.train()`` steps:
+   losses finite, weights and the codebook moving, both kernels launched.
+   One step of that configuration at batch 2 x 2 on the card against the
+   CPU (held as in phase 6), and one forward of the
+   ``PhillipEncoder64`` debug encoder on the card.
 
 Phase 2 also holds the blur fused with 2x decimation, which no path runs,
 at the D/E shapes of training. The script prints a ``kernels`` JSON line
@@ -51,6 +66,7 @@ another checkout (an unpacked parent commit) with this script's phase 2.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import shutil
@@ -421,6 +437,15 @@ def main_path_phase(card: str):
 
 
 def card_vs_cpu_phase():
+    """On the sweep's graph: the literal resample, as attfind_extraction
+    runs it."""
+    from stylex_tpu_torch.ops.fusion import prefer_literal_resample
+
+    with prefer_literal_resample():
+        return _card_vs_cpu()
+
+
+def _card_vs_cpu():
     from stylex_tpu_torch.attfind.extraction import _phase1, _sweep_chunk
     from stylex_tpu_torch.config import ModelConfig
     from stylex_tpu_torch.data import SyntheticImageDataset
@@ -473,62 +498,84 @@ def _cuda_ms(fn):
     return start.elapsed_time(end), out
 
 
+def _train_run(card: str, base: Path, label: str, model_cfg, tc, n_steps: int,
+               literal: bool = False, moving=None):
+    """``n_steps`` of ``Trainer.train()`` from step 0 on the synthetic set,
+    each timed by CUDA events, with the kernels' launches counted from 0 and
+    the peak memory of the steps; ``literal`` forces the literal resample
+    graph. ``moving`` (model -> tensors) must all change. Returns the run's
+    record and the trainer's model."""
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+    from stylex_tpu_torch.ops.fusion import prefer_literal_resample
+    from stylex_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(name=f"smoke-{label}", base_dir=str(base), model_cfg=model_cfg,
+                      train_cfg=tc, classifier_name="resnet", seed=0)
+    graph = prefer_literal_resample if literal else contextlib.nullcontext
+    try:
+        trainer.set_data_src(dataset_name="synthetic")
+        trainer.init_stylex()
+        model = trainer.state.model
+        watched = [model.G.blocks[0].conv1.weight, model.D.fc.weight] + list(
+            moving(model) if moving else [])
+        before = [t.detach().clone() for t in watched]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        rows, ema_checks = [], {}
+        for i in range(n_steps):
+            with graph():
+                ms, metrics = _cuda_ms(trainer.train)
+            rows.append(dict(step=i, ms=ms, **metrics))
+            log(f"  {label} step {i}: {ms:.1f} ms " + " ".join(
+                f"{k}={v:.5g}" for k, v in metrics.items()) + f" [{card}]")
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"{label} step {i}: non-finite metrics {metrics}")
+            if i == 2:  # the EMA reset copied G into GE
+                ema_checks["reset_at_2"] = all(
+                    torch.equal(a, b) for a, b in zip(model.GE.parameters(),
+                                                       model.G.parameters()))
+                ge2 = [p.detach().clone() for p in model.GE.parameters()]
+            if i == 4:  # then moved by the EMA update
+                ema_checks["update_at_4"] = not all(
+                    torch.equal(a, b) for a, b in zip(model.GE.parameters(), ge2))
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        trainer.close()
+    moved = all(not torch.equal(a, b) for a, b in zip(before, watched))
+    steady = [r["ms"] for r in rows[1:]] or [rows[0]["ms"]]
+    ms_step = statistics.median(steady)
+    res = dict(steps=rows, launches=launches, peak_bytes=peak, ms_per_step=ms_step,
+               images_per_s=tc.batch_size * tc.gradient_accumulate_every / (ms_step / 1e3),
+               ema=ema_checks, moved=moved, graph="literal" if literal else "fused")
+    log(f"  {label}: median {ms_step:.1f} ms/step over steps 1..{n_steps - 1} "
+        f"(step 0 {rows[0]['ms']:.1f} ms, with the first save and evaluation), "
+        f"{res['images_per_s']:.1f} images/s, peak {peak / 2**30:.3f} GiB, "
+        f"launches {launches} [{card}]")
+    if not moved:
+        raise AssertionError(f"{label}: weights did not move")
+    for name in ON_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: training did not launch kernel {name}")
+    return res, model
+
+
 def training_phase(card: str):
     from stylex_tpu_torch.config import ModelConfig, TrainConfig
-    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
-    from stylex_tpu_torch.train.trainer import Trainer
 
     base = Path(tempfile.mkdtemp(prefix="stylex_train_", dir=OUT_DIR))
     out = {}
     try:
-        for dtype, n_steps in (("float32", 6), ("bfloat16", 2)):
+        for label, dtype, n_steps, literal in (("float32", "float32", 6, False),
+                                                ("float32_literal", "float32", 6, True),
+                                                ("bfloat16", "bfloat16", 2, False)):
             tc = TrainConfig(pl_start_step=0, pl_every=4, ema_start_step=0, ema_every=2,
                              save_every=1000, evaluate_every=1000, num_image_tiles=4,
                              compute_dtype=dtype)
-            trainer = Trainer(name=f"smoke-{dtype}", base_dir=str(base), model_cfg=ModelConfig(),
-                              train_cfg=tc, classifier_name="resnet", seed=0)
-            try:
-                trainer.set_data_src(dataset_name="synthetic")
-                trainer.init_stylex()
-                model = trainer.state.model
-                w0 = model.G.blocks[0].conv1.weight.detach().clone()
-                d0 = model.D.fc.weight.detach().clone()
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                reset_launches()
-                rows, ema_checks = [], {}
-                for i in range(n_steps):
-                    ms, metrics = _cuda_ms(trainer.train)
-                    rows.append(dict(step=i, ms=ms, **metrics))
-                    log(f"  {dtype} step {i}: {ms:.1f} ms " + " ".join(
-                        f"{k}={v:.5g}" for k, v in metrics.items()) + f" [{card}]")
-                    if not all(np.isfinite(v) for v in metrics.values()):
-                        raise AssertionError(f"{dtype} step {i}: non-finite metrics {metrics}")
-                    if dtype == "float32" and i == 2:  # the EMA reset copied G into GE
-                        ema_checks["reset_at_2"] = all(
-                            torch.equal(a, b) for a, b in zip(model.GE.parameters(),
-                                                               model.G.parameters()))
-                        ge2 = [p.detach().clone() for p in model.GE.parameters()]
-                    if dtype == "float32" and i == 4:  # then moved by the EMA update
-                        ema_checks["update_at_4"] = not all(
-                            torch.equal(a, b) for a, b in zip(model.GE.parameters(), ge2))
-                launches = dict(LAUNCHES)
-                peak = torch.cuda.max_memory_allocated()
-            finally:
-                trainer.close()
-            moved = (not torch.equal(w0, model.G.blocks[0].conv1.weight)
-                     and not torch.equal(d0, model.D.fc.weight))
-            steady = [r["ms"] for r in rows[1:]] or [rows[0]["ms"]]
-            ms_step = statistics.median(steady)
-            res = dict(steps=rows, launches=launches, peak_bytes=peak, ms_per_step=ms_step,
-                       images_per_s=TRAIN_BATCH / (ms_step / 1e3), ema=ema_checks, moved=moved)
-            out[dtype] = res
-            log(f"  {dtype}: median {ms_step:.1f} ms/step over steps 1..{n_steps - 1} "
-                f"(step 0 {rows[0]['ms']:.1f} ms, with the first save and evaluation), "
-                f"{res['images_per_s']:.1f} images/s, peak {peak / 2**30:.3f} GiB, "
-                f"launches {launches} [{card}]")
-            if not moved:
-                raise AssertionError(f"{dtype}: G or D weights did not move")
+            res, _ = _train_run(card, base, label, ModelConfig(), tc, n_steps, literal)
+            out[label] = res
+            ema_checks, rows = res["ema"], res["steps"]
             if dtype == "float32":
                 gp = [r["gp"] for r in rows]
                 if not (gp[0] > 0 and gp[4] > 0 and gp[1] == gp[2] == gp[3] == gp[5] == 0):
@@ -538,9 +585,6 @@ def training_phase(card: str):
                     raise AssertionError(f"PL must first run at step 4: pl_mean {pl}")
                 if not (ema_checks["reset_at_2"] and ema_checks["update_at_4"]):
                     raise AssertionError(f"EMA reset/update did not fire: {ema_checks}")
-                for name in ON_PATH:
-                    if launches[name] <= 0:
-                        raise AssertionError(f"training did not launch kernel {name}")
     finally:
         shutil.rmtree(base, ignore_errors=True)
     return out
@@ -572,11 +616,14 @@ def _draws_to(draws, device):
 TRAIN_TREES = ("encoder", "S", "G", "D")
 # (input, weight, stride, padding): the trainable convs of phase 6's step
 # where cuDNN's float32 weight gradient strays most (D over 4 fakes and 4
-# reals, E and G over 4 images), a stride-2 one, and LPIPS's frozen 5x5
+# reals, E and G over 4 images), a stride-2 one, LPIPS's frozen 5x5, the
+# fused downsample's 5x5 stride-2 conv of D's first block (over its padded
+# 67x67 map) and the fused upsample's coarse-grid conv of G's block 3
 CONV_CASES = [((8, 64, 64, 64), (64, 64, 3, 3), 1, 1), ((4, 32, 64, 64), (32, 32, 3, 3), 1, 1),
               ((8, 128, 32, 32), (128, 128, 3, 3), 1, 1), ((4, 512, 8, 8), (512, 512, 3, 3), 1, 1),
               ((4, 256, 16, 16), (256, 256, 3, 3), 2, 1), ((8, 64, 32, 32), (128, 64, 1, 1), 2, 0),
-              ((4, 64, 7, 7), (192, 64, 5, 5), 1, 2)]
+              ((4, 64, 7, 7), (192, 64, 5, 5), 1, 2), ((8, 64, 67, 67), (64, 64, 5, 5), 2, 0),
+              ((4, 128, 16, 16), (256, 128, 3, 3), 1, 1)]
 GEMM_TOL = 1e-5  # of max |float64 result|; a direct float32 sum keeps ~1e-6
 
 
@@ -635,14 +682,50 @@ def conv_precision():
     return out
 
 
-def train_card_vs_cpu_phase():
+@contextlib.contextmanager
+def smooth_kinks(eps: float = 1e-2):
+    """Replace the kinked functions of a train step (leaky ReLU in G, D and
+    E; ReLU in the hinge loss, ResNet-18 and LPIPS; their max pooling) by
+    smooth stand-ins: ``(1+a)/2 x + (1-a)/2 sqrt(x^2 + eps)`` for slope a,
+    average pooling. At a kink, float32 rounding decides on which side an
+    activation falls, and one flipped activation changes its weights'
+    gradients by about 1 / (positions in the batch), beyond the per-element
+    tolerance: a CPU step whose weights move by 1e-6 of themselves already
+    disagrees with itself so (``cpu_f32_perturbed`` below). With no kinks
+    the step is a smooth function, and the card must agree with the CPU
+    and the witness element by element."""
+    import torch.nn.functional as F
+
+    saved = F.leaky_relu, F.relu, F.max_pool2d
+
+    def leaky(x, negative_slope=0.01, inplace=False):
+        a = negative_slope
+        return (1 + a) / 2 * x + (1 - a) / 2 * torch.sqrt(x * x + eps)
+
+    F.leaky_relu = leaky
+    F.relu = lambda x, inplace=False: leaky(x, 0.0)
+    F.max_pool2d = lambda x, kernel_size, stride=None, padding=0, *args, **kwargs: F.avg_pool2d(
+        x, kernel_size, stride, padding)
+    try:
+        yield
+    finally:
+        F.leaky_relu, F.relu, F.max_pool2d = saved
+
+
+def train_card_vs_cpu_phase(cfg=None, tc=None, witness: bool = True):
     """One train step from the same weights, batch and draws: on the CPU in
     float64 (the witness: float64 copies of the float32 weights), on the CPU
     in float32, and on the card in float32 as the trainer runs it (trainable
-    convolutions by im2col while autograd records, the rest in cuDNN). Both
-    float32 runs are held against the witness, and the card against the
-    CPU. A last card run with every convolution in cuDNN is reported: the
-    drift that the im2col path removes."""
+    convolutions by im2col while autograd records, the rest in cuDNN).
+
+    The step as trained has kinks (``smooth_kinks``): its losses are held
+    (card against the CPU and the witness), its gradients reported, beside
+    the CPU's own spread under a 1e-6 weight perturbation and the card with
+    every convolution in cuDNN. The same step with its kinks smoothed is
+    held in full: losses and gradients, float32 on the CPU and the card
+    against the witness, the card against the CPU. ``cfg``/``tc`` default
+    to the 64px config and batch 2 x 2 with GP, PL and augmentation on;
+    without ``witness`` only the card and the CPU in float32 run."""
     from stylex_tpu_torch.config import ModelConfig, TrainConfig
     from stylex_tpu_torch.data import SyntheticImageDataset
     from stylex_tpu_torch.device import set_float32_precision
@@ -652,9 +735,9 @@ def train_card_vs_cpu_phase():
     from stylex_tpu_torch.train import create_train_state, draw_step, make_train_step
 
     set_float32_precision()
-    cfg = ModelConfig()
-    tc = TrainConfig(batch_size=2, gradient_accumulate_every=2, pl_start_step=-1, pl_every=1,
-                     aug_prob=0.5)
+    cfg = cfg or ModelConfig()
+    tc = tc or TrainConfig(batch_size=2, gradient_accumulate_every=2, pl_start_step=-1,
+                           pl_every=1, aug_prob=0.5)
     ds = SyntheticImageDataset(12, cfg.image_size, seed=2)
     imgs = (np.stack([ds[i] for i in range(12)]) * 255 + 0.5).astype(np.uint8)
     batch = {k: imgs[4 * j:4 * j + 4].reshape(2, 2, *imgs.shape[1:])
@@ -663,9 +746,14 @@ def train_card_vs_cpu_phase():
     num_layers = int(np.log2(cfg.image_size)) - 1
     draws = draw_step(torch.Generator().manual_seed(5), cfg, tc, 2, num_layers, tc.aug_prob, 0)
 
-    def run(dev, dtype):
+    def run(dev, dtype, perturb: float = 0.0):
         model = build_stylex(cfg, device=dev)
         model.load_state_dict(sd)
+        if perturb:
+            gen = torch.Generator().manual_seed(11)
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.mul_(1 + perturb * torch.randn(p.shape, generator=gen).to(p.device))
         clf = build_classifier("resnet", cfg.image_size, seed=3, device=dev)
         clf.net.requires_grad_(False)
         if dtype == "float64":
@@ -684,39 +772,94 @@ def train_card_vs_cpu_phase():
         grads.update(zip([n for n in names if n.startswith("D.")], state.d_opt.grads))
         return {k: float(v) for k, v in metrics.items()}, grads
 
-    runs = {"cpu_f64": run("cpu", "float64"), "cpu_f32": run("cpu", "float32"),
-            "card": run("cuda", "float32")}
-    conv_ops.GEMM_FLOAT32 = False
-    try:
-        runs["card_cudnn_only"] = run("cuda", "float32")
-    finally:
-        conv_ops.GEMM_FLOAT32 = True
-    m64, g64 = runs["cpu_f64"]
     errs, faults = {}, []
-    # (run, reference, held)
-    pairs = [("cpu_f32", "cpu_f64", True), ("card", "cpu_f64", True), ("card", "cpu_f32", True),
-             ("card_cudnn_only", "cpu_f64", False), ("card_cudnn_only", "cpu_f32", False)]
-    for label, ref, held in pairs:
-        (m, g), (m_ref, g_ref) = runs[label], runs[ref]
-        tag = "" if held else " (reported)"
-        for k, want in m_ref.items():
-            err = abs(m[k] - want)
-            errs[f"{label}_vs_{ref}_{k}"] = err
-            log(f"  {label} vs {ref} {k:9s}: {m[k]:.7g} vs {want:.7g}, abs err {err:.3g} "
-                f"(rtol {CPU_RTOL}, atol {CPU_ATOL}){tag}")
-            if held and err > CPU_ATOL + CPU_RTOL * abs(want):
-                faults.append(f"{label} vs {ref}: loss {k}")
-        for tree, (worst, n_bad, scale) in _grad_errs(g, g_ref).items():
-            errs[f"{label}_vs_{ref}_grad_{tree}_max_abs_err_over_max"] = worst
-            errs[f"{label}_vs_{ref}_grad_{tree}_n_beyond"] = n_bad
-            log(f"  {label} vs {ref} grad {tree:8s}: max |diff| / max|g| = {worst:.3g} "
-                f"(max|g| {scale:.4g}; {n_bad} elements beyond rtol {CPU_RTOL}, "
-                f"atol {CPU_ATOL} x max|g|){tag}")
-            if held and n_bad:
-                faults.append(f"{label} vs {ref}: grad {tree}")
+    for smooth in (False, True):
+        with smooth_kinks() if smooth else contextlib.nullcontext():
+            runs = {"cpu_f32": run("cpu", "float32"), "card": run("cuda", "float32")}
+            # (run, reference, losses held, gradients held)
+            pairs = [("card", "cpu_f32", True, smooth)]
+            if witness:
+                runs["cpu_f64"] = run("cpu", "float64")
+                pairs = [("cpu_f32", "cpu_f64", True, smooth), ("card", "cpu_f64", True, smooth),
+                         *pairs]
+            if witness and not smooth:
+                runs["cpu_f32_perturbed"] = run("cpu", "float32", perturb=1e-6)
+                conv_ops.GEMM_FLOAT32 = False
+                try:
+                    runs["card_cudnn_only"] = run("cuda", "float32")
+                finally:
+                    conv_ops.GEMM_FLOAT32 = True
+                pairs += [("cpu_f32_perturbed", "cpu_f32", False, False),
+                          ("card_cudnn_only", "cpu_f64", False, False),
+                          ("card_cudnn_only", "cpu_f32", False, False)]
+        graph = "smooth" if smooth else "as trained"
+        for label, ref, hold_losses, hold_grads in pairs:
+            (m, g), (m_ref, g_ref) = runs[label], runs[ref]
+            name = f"{label}_vs_{ref}" + ("_smooth" if smooth else "")
+            for k, want in m_ref.items():
+                err = abs(m[k] - want)
+                errs[f"{name}_{k}"] = err
+                log(f"  [{graph}] {label} vs {ref} {k:9s}: {m[k]:.7g} vs {want:.7g}, abs err "
+                    f"{err:.3g} (rtol {CPU_RTOL}, atol {CPU_ATOL})"
+                    + ("" if hold_losses else " (reported)"))
+                if hold_losses and err > CPU_ATOL + CPU_RTOL * abs(want):
+                    faults.append(f"[{graph}] {label} vs {ref}: loss {k}")
+            for tree, (worst, n_bad, scale) in _grad_errs(g, g_ref).items():
+                errs[f"{name}_grad_{tree}_max_abs_err_over_max"] = worst
+                errs[f"{name}_grad_{tree}_n_beyond"] = n_bad
+                log(f"  [{graph}] {label} vs {ref} grad {tree:8s}: max |diff| / max|g| = "
+                    f"{worst:.3g} (max|g| {scale:.4g}; {n_bad} elements beyond rtol {CPU_RTOL}, "
+                    f"atol {CPU_ATOL} x max|g|)" + ("" if hold_grads else " (reported)"))
+                if hold_grads and n_bad:
+                    faults.append(f"[{graph}] {label} vs {ref}: grad {tree}")
     if faults:
         raise AssertionError(f"train step: runs disagree: {faults}")
     return errs
+
+
+# ------------------------------------------------------------------ phase 7
+
+
+def options_phase(card: str):
+    """Training with attention, the no_const stem, a quantize layer and the
+    contrastive regulariser by the scan step, at full width; the same
+    configuration's step on the card against the CPU; a debug encoder."""
+    from stylex_tpu_torch.config import ModelConfig, TrainConfig
+    from stylex_tpu_torch.models import build_stylex
+
+    cfg = ModelConfig(attn_layers=(1, 2), no_const=True, fq_layers=(2,))
+    tc = TrainConfig(cl_reg=True, fused_microbatches=False, pl_start_step=0, pl_every=2,
+                     ema_start_step=0, ema_every=2, save_every=1000, evaluate_every=1000,
+                     num_image_tiles=4)
+    base = Path(tempfile.mkdtemp(prefix="stylex_options_", dir=OUT_DIR))
+    try:
+        res, model = _train_run(card, base, "options", cfg, tc, 3, moving=lambda m: [
+            m.D.quantize_blocks[1].codebook, m.encoder.quantize_blocks[1].codebook,
+            m.G.to_initial_block.weight, m.G.attns[3][0].fn.fn.to_q.weight,
+            m.D.attn_blocks[0][0].fn.fn.to_q.weight])
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    rows = res["steps"]
+    if not (rows[0]["gp"] > 0 and rows[2]["pl_mean"] >= 0
+            and all(r["cr_loss"] > 0 and r["q_loss"] > 0 for r in rows)):
+        raise AssertionError(f"options: GP, PL, the contrastive or quantize loss missing: {rows}")
+
+    log("  options step, batch 2 x 2, card against CPU (float32, TF32 off)")
+    step_tc = TrainConfig(batch_size=2, gradient_accumulate_every=2, pl_start_step=-1,
+                          pl_every=1, aug_prob=0.5, cl_reg=True, fused_microbatches=False)
+    res["card_vs_cpu"] = train_card_vs_cpu_phase(cfg, step_tc, witness=False)
+
+    enc_cfg = ModelConfig(encoder_class="PhillipEncoder64")
+    encoder = build_stylex(enc_cfg, seed=0).encoder
+    x = torch.rand(4, 3, 64, 64, generator=torch.Generator().manual_seed(0)).cuda()
+    with torch.no_grad():
+        enc = encoder(x)
+    log(f"  PhillipEncoder64 on the card: {tuple(enc.shape)}, max |e| "
+        f"{float(enc.abs().max()):.4g} [{card}]")
+    if enc.shape != (4, 512) or not bool(torch.isfinite(enc).all()):
+        raise AssertionError(f"PhillipEncoder64: {tuple(enc.shape)} or non-finite")
+    res["debug_encoder_shape"] = list(enc.shape)
+    return res
 
 
 def main(argv=None) -> int:
@@ -773,6 +916,10 @@ def main(argv=None) -> int:
     conv_rows = conv_precision()
     train_cpu_errs = train_card_vs_cpu_phase()
 
+    log("[phase 7] model and step options at full width: attention, no_const, fq_layers, "
+        "cl_reg, the scan step")
+    options_out = options_phase(card)
+
     sources = {"upsample2x_bilinear": "stylex_tpu_torch/csrc/upsample2x_bilinear.cu",
                "blur3": "stylex_tpu_torch/csrc/blur3.cu",
                "blur3_downsample2x": "stylex_tpu_torch/csrc/blur3.cu"}
@@ -784,7 +931,9 @@ def main(argv=None) -> int:
              launches=main_out["resume"]["launches"][name],
              launches_flat=main_out["flat"]["launches"][name],
              launches_train=train_out["float32"]["launches"][name],
+             launches_train_literal=train_out["float32_literal"]["launches"][name],
              launches_train_bf16=train_out["bfloat16"]["launches"][name],
+             launches_options=options_out["launches"][name],
              max_abs_err=s["max_abs_err"], ms=s["ms"], device_ms=s["device_ms"],
              plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
              bound_by="+".join(sorted(s["bound_by"])), library_ms=s["library_ms"],
@@ -798,7 +947,7 @@ def main(argv=None) -> int:
                    for k, v in main_out.items()},
         main_path_checks=checks, ranked=ranked,
         card_vs_cpu=cpu_errs, training=train_out, conv_precision=conv_rows,
-        train_card_vs_cpu=train_cpu_errs,
+        train_card_vs_cpu=train_cpu_errs, options=options_out,
         seconds=time.perf_counter() - t_start,
     )
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
@@ -806,7 +955,8 @@ def main(argv=None) -> int:
         f"bound_ms are bf16 sums over one sweep chunk's calls (blur3_downsample2x: over the D/E "
         f"shapes of one 32-image training phase); host_us and host_us_grad the median host cost "
         f"per wrapper call over every phase-2 shape, without and with autograd; launches from "
-        f"the block-resume run, launches_train from the 6 float32 training steps")
+        f"the block-resume run, launches_train from the 6 float32 training steps on the fused "
+        f"graph (launches_train_literal on the literal one), launches_options from phase 7")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

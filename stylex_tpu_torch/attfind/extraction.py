@@ -18,8 +18,11 @@ Two sweeps give the same records:
   states are freed once its group is done;
 * flat: every perturbation runs the whole generator.
 
-The whole path runs the generator's literal resample graph (bilinear
-upsample, blur) through the package's CUDA kernels on the GPU.
+The whole extraction runs inside ``prefer_literal_resample()``: the
+generator's and D/E's literal resample graph (bilinear upsample, blur),
+through the package's CUDA kernels on the GPU, as the JAX package's sweep
+does (it measured faster there for forward-only sweeps). An explicit
+``STYLEX_TPU_NO_FUSED_UPCONV`` still wins.
 
 The records keep the JAX package's layout (NHWC images, the same shapes)
 and the reference's ``style_change_records.hdf5`` schema.
@@ -37,6 +40,7 @@ import torch
 from stylex_tpu_torch.config import Arch
 from stylex_tpu_torch.device import resolve_dtype, set_float32_precision
 from stylex_tpu_torch.models.stylex import StylEx, make_w
+from stylex_tpu_torch.ops.fusion import prefer_literal_resample
 from stylex_tpu_torch.ops.latents import expand_styles
 
 __all__ = [
@@ -136,6 +140,7 @@ def _to_nchw(images: np.ndarray, device, dtype) -> torch.Tensor:
 
 
 @torch.no_grad()
+@prefer_literal_resample()
 def attfind_extraction(
     model: StylEx,
     classifier_fn: Classify,

@@ -6,12 +6,15 @@
 Flags are ``--key value`` or ``--key=value``, kebab or snake case, with
 Python literals for numbers, bools and lists; a bare flag means True. The
 names and defaults are the JAX package's CLI's, plus ``--device`` (default:
-the GPU; ``--device cpu`` runs on the host). A flag of that CLI that the
-port does not support yet (FID, interpolation, MNIST, attention layers, the
-scan step, multi-device...) is refused; ``--cl-reg`` and ``--fq-layers``
-reach the step and model, which raise ``NotImplementedError``. A step whose
-losses go non-finite reloads the latest checkpoint and is retried, 3 times
-at most.
+the GPU; ``--device cpu`` runs on the host). Every model and train-step
+option of that CLI is taken: ``--attn-layers [1,2]``, ``--no-const``,
+``--fq-layers [2] --fq-dict-size 256``, ``--encoder-class
+PhillipEncoder64``, ``--remat``, ``--cl-reg``, ``--fused-microbatches
+False`` (the scan step), beside the losses, augmentation and top-k
+options. A flag of that CLI that the port does not support yet (FID,
+interpolation, MNIST, multi-device, ``--steps-per-dispatch``,
+``--async-save``...) is refused. A step whose losses go non-finite reloads
+the latest checkpoint and is retried, 3 times at most.
 """
 
 from __future__ import annotations
@@ -66,6 +69,8 @@ def train_from_folder(
     cl_reg: bool = False,
     fq_layers: Sequence[int] = (),
     fq_dict_size: int = 256,
+    attn_layers: Sequence[int] = (),
+    no_const: bool = False,
     aug_prob: Optional[float] = None,
     aug_types: Sequence[str] = ("translation", "cutout"),
     top_k_training: bool = False,
@@ -79,12 +84,14 @@ def train_from_folder(
     classifier_path: Optional[str] = None,
     lpips_path: Optional[str] = None,
     num_classes: int = 2,
+    encoder_class: Optional[str] = None,
     sample_from_encoder: bool = True,
     alternating_training: bool = True,
     kl_rec_during_disc: bool = False,
     dataset_name: Optional[str] = None,
     classifier_name: str = "resnet",
     use_old_architecture: bool = True,
+    remat: bool = False,
     fused_microbatches: bool = True,
     device: Optional[str] = None,
 ) -> None:
@@ -98,7 +105,8 @@ def train_from_folder(
         image_size=image_size, network_capacity=network_capacity, fmap_max=fmap_max,
         latent_dim=512 + num_classes, lr_mlp=lr_mlp, transparent=transparent,
         num_classes=num_classes, arch=Arch.OLD if use_old_architecture else Arch.NEW,
-        fq_layers=_as_tuple(fq_layers), fq_dict_size=fq_dict_size,
+        attn_layers=_as_tuple(attn_layers), no_const=no_const, encoder_class=encoder_class,
+        fq_layers=_as_tuple(fq_layers), fq_dict_size=fq_dict_size, remat=remat,
     )
     train_cfg = TrainConfig(
         batch_size=batch_size, gradient_accumulate_every=gradient_accumulate_every,

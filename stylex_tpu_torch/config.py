@@ -47,9 +47,7 @@ class ModelConfig:
     encoder_class: Optional[str] = None  # debug encoder registry name
     fq_layers: Tuple[int, ...] = ()  # D feature-quantization layers
     fq_dict_size: int = 256
-    # a training option of the JAX package; kept so .config.json files
-    # round-trip unchanged
-    remat: bool = False
+    remat: bool = False  # recompute each G block's forward in the backward pass
 
     @property
     def mapping_dim(self) -> int:
@@ -91,7 +89,7 @@ class TrainConfig:
     sample_from_encoder: bool = True
     dual_contrast_loss: bool = False
     rel_disc_loss: bool = False
-    cl_reg: bool = False  # not ported: the step raises
+    cl_reg: bool = False  # contrastive D regularisation on two views of the reals
     top_k_training: bool = False
     generator_top_k_gamma: float = 0.99
     generator_top_k_frac: float = 0.5
@@ -113,4 +111,4 @@ class TrainConfig:
     trunc_psi: float = 0.75
     num_image_tiles: int = 8
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16' | 'float64' (a CPU witness)
-    fused_microbatches: bool = True  # False (the scan step) is not ported: the step raises
+    fused_microbatches: bool = True  # False: the scan step, one micro-batch at a time

@@ -5,7 +5,14 @@
   inverse of the JAX package's ``convert_stylex_state_dict``. Linear
   kernels (in, out) become weights (out, in); conv kernels HWIO become OIHW;
   ``initial_block`` (1, 4, 4, C) becomes (1, C, 4, 4); the D/E ``fc`` input
-  columns go back from the (2, 2, C) flatten order to torch's (C, 2, 2).
+  columns (and a debug encoder's linear layer's) go back from the (H, W, C)
+  flatten order to torch's (C, H, W). The attention blocks ``attn{i}`` go
+  to the reference's ``attns.{i}`` (G) / ``attn_blocks.{i}`` (D/E)
+  nesting; the ``no_const`` stem's (4, 4, latent, C) ``to_initial_block``
+  kernel to (latent, C, 4, 4), flipped in both spatial axes (flax's
+  ``ConvTranspose`` indexes its taps the other way round from
+  ``conv_transpose2d``); the ``vq`` collections ``D_vq`` / ``E_vq`` to the
+  quantize layers' buffers.
 * :func:`classifier_state_dict_from_jax` does the same for the flax
   ResNet-18 / MobileNetV2 variables, into torchvision's keys.
 * :func:`lpips_params_from_jax` does it for the LPIPS tree, and
@@ -59,17 +66,73 @@ def _conv(sd: StateDict, key: str, p: Mapping) -> None:
         sd[f"{key}.bias"] = _t(p["bias"])
 
 
+def _chan_norm(sd: StateDict, key: str, p: Mapping) -> None:
+    sd[f"{key}.g"] = _t(np.asarray(p["g"]).reshape(1, -1, 1, 1))
+    sd[f"{key}.b"] = _t(np.asarray(p["b"]).reshape(1, -1, 1, 1))
+
+
+def _attn(sd: StateDict, key: str, p: Mapping) -> None:
+    """A flax ``AttnAndFF`` -> the reference's Sequential(Residual(PreNorm(
+    LinearAttention)), Residual(PreNorm(Sequential(conv, act, conv))))."""
+    a = f"{key}.0.fn.fn"
+    _chan_norm(sd, f"{key}.0.fn.norm", p["norm1"])
+    _conv(sd, f"{a}.to_q", p["attn"]["to_q"])
+    _conv(sd, f"{a}.to_kv.net.0", p["attn"]["to_kv_depth"])
+    _conv(sd, f"{a}.to_kv.net.1", p["attn"]["to_kv_point"])
+    _conv(sd, f"{a}.to_out", p["attn"]["to_out"])
+    _chan_norm(sd, f"{key}.1.fn.norm", p["norm2"])
+    _conv(sd, f"{key}.1.fn.fn.0", p["ff1"])
+    _conv(sd, f"{key}.1.fn.fn.2", p["ff2"])
+
+
+def _flat_linear(sd: StateDict, key: str, p: Mapping, channels: int) -> None:
+    """A linear layer over a flattened (H, W, C) map -> torch's (C, H, W)
+    column order."""
+    k = np.asarray(p["kernel"])  # (H*W*C, out)
+    out_dim = k.shape[1]
+    w = k.T.reshape(out_dim, -1, channels).transpose(0, 2, 1).reshape(out_dim, -1)
+    sd[f"{key}.weight"] = _t(w)
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _debug_encoder(sd: StateDict, prefix: str, p: Mapping) -> None:
+    convs = sorted((k for k in p if k.startswith("conv")), key=lambda k: int(k[4:]))
+    for k in convs:
+        _conv(sd, f"{prefix}.{k}", p[k])
+    (fc,) = [k for k in p if not k.startswith("conv")]
+    _flat_linear(sd, f"{prefix}.{fc}", p[fc], np.asarray(p[convs[-1]]["kernel"]).shape[-1])
+
+
+def _vq(sd: StateDict, prefix: str, tree: Mapping) -> None:
+    """A flax ``vq`` collection {codebook{i}, cluster{i}, avg{i}} -> the
+    buffers of ``{prefix}.quantize_blocks.{i}``."""
+    for k, v in tree.items():
+        if k.startswith("codebook"):
+            i = k[len("codebook"):]
+            q = f"{prefix}.quantize_blocks.{i}"
+            sd[f"{q}.codebook"] = _t(v)
+            sd[f"{q}.cluster_size"] = _t(tree[f"cluster{i}"])
+            sd[f"{q}.embed_avg"] = _t(tree[f"avg{i}"])
+
+
 def _mapping(sd: StateDict, prefix: str, p: Mapping, depth: int) -> None:
     for i in range(depth):
         _linear(sd, f"{prefix}.net.{2 * i}", p[f"fc{i}"])
 
 
 def _generator(sd: StateDict, prefix: str, p: Mapping, cfg: ModelConfig) -> None:
-    sd[f"{prefix}.initial_block"] = _t(np.asarray(p["initial_block"]).transpose(0, 3, 1, 2))
+    if "initial_block" in p:
+        sd[f"{prefix}.initial_block"] = _t(np.asarray(p["initial_block"]).transpose(0, 3, 1, 2))
+    else:  # no_const
+        k = np.asarray(p["to_initial_block"]["kernel"])  # (4, 4, latent, C)
+        sd[f"{prefix}.to_initial_block.weight"] = _t(np.ascontiguousarray(
+            k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]))
     _conv(sd, f"{prefix}.initial_conv", p["initial_conv"])
     n_blocks = len(generator_filters(cfg.image_size, cfg.network_capacity, cfg.fmap_max)) - 1
     hwio_to_oihw = lambda w: _t(np.asarray(w).transpose(3, 2, 0, 1))
     for i in range(n_blocks):
+        if f"attn{i}" in p:
+            _attn(sd, f"{prefix}.attns.{i}", p[f"attn{i}"])
         b, q = f"{prefix}.blocks.{i}", p[f"block{i}"]
         for name in ("to_style1", "to_noise1", "to_style2", "to_noise2"):
             _linear(sd, f"{b}.{name}", q[name])
@@ -88,13 +151,10 @@ def _trunk(sd: StateDict, prefix: str, p: Mapping, cfg: ModelConfig) -> None:
         _conv(sd, f"{b}.net.2", q["conv2"])
         if "conv_down" in q:
             _conv(sd, f"{b}.downsample.1", q["conv_down"])
+        if f"attn{i}" in p:
+            _attn(sd, f"{prefix}.attn_blocks.{i}", p[f"attn{i}"])
     _conv(sd, f"{prefix}.final_conv", p["final_conv"])
-    chan_last = filters[-1]
-    k = np.asarray(p["fc"]["kernel"])  # (2*2*C, out), rows in (2, 2, C) order
-    out_dim = k.shape[1]
-    w = k.T.reshape(out_dim, 2, 2, chan_last).transpose(0, 3, 1, 2).reshape(out_dim, -1)
-    sd[f"{prefix}.fc.weight"] = _t(w)
-    sd[f"{prefix}.fc.bias"] = _t(p["fc"]["bias"])
+    _flat_linear(sd, f"{prefix}.fc", p["fc"], filters[-1])
 
 
 def _subtree_state_dict(name: str, tree: Mapping, cfg: ModelConfig) -> StateDict:
@@ -105,19 +165,23 @@ def _subtree_state_dict(name: str, tree: Mapping, cfg: ModelConfig) -> StateDict
         _mapping(sd, name, tree, cfg.style_depth)
     elif name in ("G", "GE"):
         _generator(sd, name, tree, cfg)
+    elif name == "encoder" and cfg.encoder_class is not None:
+        _debug_encoder(sd, name, tree)
     else:
         _trunk(sd, name, tree, cfg)
     return sd
 
 
 def stylex_state_dict_from_jax(params: Mapping[str, Any], cfg: ModelConfig) -> StateDict:
-    """The JAX package's StylEx tree {'encoder','S','G','D','SE','GE'} (numpy
-    leaves) -> the port's state dict."""
-    if cfg.encoder_class is not None:
-        raise NotImplementedError("debug encoders are not ported yet")
+    """The JAX package's StylEx tree {'encoder','S','G','D','SE','GE'} and,
+    with ``fq_layers``, 'D_vq' and 'E_vq' (numpy leaves) -> the port's state
+    dict."""
     sd: StateDict = {}
     for name in ("encoder", "S", "G", "D", "SE", "GE"):
         sd.update(_subtree_state_dict(name, params[name], cfg))
+    for name, prefix in (("D_vq", "D"), ("E_vq", "encoder")):
+        if name in params:
+            _vq(sd, prefix, params[name])
     return sd
 
 
@@ -168,9 +232,10 @@ def _load_adam(opt: torch.optim.Optimizer, params: Dict[str, torch.nn.Parameter]
 def train_state_from_jax(jax_state, model_cfg: ModelConfig, train_cfg, device=None):
     """The JAX package's ``StylExTrainState`` (numpy or JAX leaves) -> the
     port's :class:`~stylex_tpu_torch.train.state.TrainState`: live and EMA
-    parameters, the optax Adam ``mu``/``nu``/``count`` of G (per label in
-    the NEW arch) and D, ``step`` and ``pl_mean``. Placed on ``device``
-    (the GPU unless ``'cpu'``)."""
+    parameters, the quantize layers' codebooks, the optax Adam
+    ``mu``/``nu``/``count`` of G (per label in the NEW arch) and D,
+    ``step`` and ``pl_mean``. Placed on ``device`` (the GPU unless
+    ``'cpu'``)."""
     from stylex_tpu_torch.device import resolve_device
     from stylex_tpu_torch.models.stylex import StylEx
     from stylex_tpu_torch.train.state import create_train_state

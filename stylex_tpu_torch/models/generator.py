@@ -1,10 +1,19 @@
 """StylEx generator: StyleGAN2 synthesis with an explicit StyleSpace input.
 
-The same network as the JAX package's generator on its literal resample
-path, in NCHW with the reference's state-dict keys:
+The same network as the JAX package's generator, in NCHW with the
+reference's state-dict keys. Its resample graph follows ``ops.fusion``:
 
-* every block except the first enters through ``upsample2x_bilinear``;
-* the RGB skip runs ``blur3(upsample2x_bilinear(rgb))``;
+* every block except the first enters through a 2x bilinear upsample: on
+  the literal graph ``upsample2x_bilinear`` (a kernel launch on the GPU),
+  on the fused graph one polyphase coarse-grid conv
+  (``modulated_upsample_conv2d``);
+* the RGB skip runs ``upsample2x_blur``: the two kernels on the literal
+  graph, one polyphase pass on the fused one;
+* optional linear attention before block ``ind`` when
+  ``num_layers - ind`` is in ``attn_layers``, and with ``no_const`` a 4x4
+  transposed conv of the mean style in place of the learned constant;
+* ``remat`` recomputes each block's forward in the backward pass
+  (``torch.utils.checkpoint``), trading compute for activation memory;
 * ``style_delta`` is added to each block's style activations, in place of
   the reference's AttFind trick of mutating ``to_style{1,2}.bias``;
 * the style coordinates (each block's ``style1`` and ``style2``,
@@ -26,9 +35,18 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from stylex_tpu_torch.models.layers import Conv2d, Linear, kaiming_normal_leaky_, leaky_relu
-from stylex_tpu_torch.ops.blur import blur3, upsample2x_bilinear
-from stylex_tpu_torch.ops.modconv import modulated_conv2d
+from torch.utils.checkpoint import checkpoint
+
+from stylex_tpu_torch.models.layers import (
+    AttnAndFF,
+    Conv2d,
+    Linear,
+    kaiming_normal_leaky_,
+    leaky_relu,
+)
+from stylex_tpu_torch.ops.blur import upsample2x_bilinear, upsample2x_blur
+from stylex_tpu_torch.ops.fusion import resample_fusion_enabled
+from stylex_tpu_torch.ops.modconv import modulated_conv2d, modulated_upsample_conv2d
 
 __all__ = [
     "Generator",
@@ -89,8 +107,11 @@ class Conv2DMod(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         kaiming_normal_leaky_(self.weight, generator)
 
-    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
-        return modulated_conv2d(x, self.weight, style, demod=self.demod)
+    def forward(self, x: torch.Tensor, style: torch.Tensor, upsample: bool = False) -> torch.Tensor:
+        """The modulated conv of ``x``, or with ``upsample`` of the 2x
+        bilinear upsample of ``x``, fused into one coarse-grid conv."""
+        fn = modulated_upsample_conv2d if upsample else modulated_conv2d
+        return fn(x, self.weight, style, demod=self.demod)
 
 
 class NoiseLinear(Linear):
@@ -101,6 +122,27 @@ class NoiseLinear(Linear):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         self.weight.zero_()
         self.bias.zero_()
+
+
+class InitialBlockConv(nn.ConvTranspose2d):
+    """The ``no_const`` stem: a bias-free 4x4 transposed conv of the mean
+    style (B, latent) as a 1x1 map -> (B, C, 4, 4). On a 1x1 input it is one
+    matmul, ``out[b, o, i, j] = sum_c s[b, c] W[c, o, i, j]``, which is how
+    it runs. Weight (latent, C, 4, 4) under the reference's key."""
+
+    def __init__(self, latent_dim: int, channels: int):
+        super().__init__(latent_dim, channels, 4, bias=False)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        # kaiming-normal with fan_in = latent * 4 * 4, as the JAX package's
+        # (4, 4, latent, C) kernel
+        fan_in = self.weight.shape[0] * 16
+        self.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+
+    def forward(self, style: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(style.dtype)
+        return (style @ w.reshape(w.shape[0], -1)).reshape(-1, *w.shape[1:])
 
 
 class RGBBlock(nn.Module):
@@ -117,7 +159,7 @@ class RGBBlock(nn.Module):
         if prev_rgb is not None:
             x = x + prev_rgb
         if self.upsample:
-            x = blur3(upsample2x_bilinear(x))
+            x = upsample2x_blur(x)
         return x
 
 
@@ -138,9 +180,13 @@ class GeneratorBlock(nn.Module):
         self.to_rgb = RGBBlock(latent_dim, filters, upsample_rgb, rgba)
 
     def forward(self, x, prev_rgb, istyle, inoise, delta1=None, delta2=None):
-        if self.upsample:
+        # the upsample is folded into conv1 on the fused graph
+        fuse_up = self.upsample and resample_fusion_enabled()
+        if self.upsample and not fuse_up:
             x = upsample2x_bilinear(x)
         h, w = x.shape[-2:]
+        if fuse_up:
+            h, w = 2 * h, 2 * w
         inoise = inoise[:, :h, :w, :]
         # (B, h, w, C) -> (B, C, w, h): the reference's spatial transpose
         noise1 = self.to_noise1(inoise).permute(0, 3, 2, 1)
@@ -149,7 +195,7 @@ class GeneratorBlock(nn.Module):
         style1 = self.to_style1(istyle)
         if delta1 is not None:
             style1 = style1 + delta1
-        x = leaky_relu(self.conv1(x, style1) + noise1)
+        x = leaky_relu(self.conv1(x, style1, upsample=fuse_up) + noise1)
 
         style2 = self.to_style2(istyle)
         if delta2 is not None:
@@ -166,19 +212,25 @@ class Generator(nn.Module):
 
     def __init__(self, image_size: int, latent_dim: int, network_capacity: int = 16,
                  transparent: bool = False, attn_layers=(), no_const: bool = False,
-                 fmap_max: int = 512):
+                 fmap_max: int = 512, remat: bool = False):
         super().__init__()
-        if no_const:
-            raise NotImplementedError("no_const generators are not ported yet")
-        if tuple(attn_layers):
-            raise NotImplementedError("generator attention layers are not ported yet")
         self.image_size = image_size
         self.num_layers = int(math.log2(image_size) - 1)
         self.block_dims = style_coord_dims(image_size, network_capacity, fmap_max)
         self.total_style_coords = sum(i + o for i, o in self.block_dims)
+        self.no_const, self.remat = no_const, remat
         init_channels = self.block_dims[0][0]
-        self.initial_block = nn.Parameter(torch.randn(1, init_channels, 4, 4))
+        if no_const:
+            self.to_initial_block = InitialBlockConv(latent_dim, init_channels)
+        else:
+            self.initial_block = nn.Parameter(torch.randn(1, init_channels, 4, 4))
         self.initial_conv = Conv2d(init_channels, init_channels, 3, padding=1)
+        # attention before block ind where num_layers - ind is listed (None
+        # elsewhere: no keys in the state dict)
+        self.attns = nn.ModuleList([
+            AttnAndFF(in_chan) if self.num_layers - ind in tuple(attn_layers) else None
+            for ind, (in_chan, _) in enumerate(self.block_dims)
+        ])
         self.blocks = nn.ModuleList([
             GeneratorBlock(
                 latent_dim, in_chan, out_chan,
@@ -191,7 +243,8 @@ class Generator(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        self.initial_block.normal_(0.0, 1.0, generator=generator)
+        if not self.no_const:
+            self.initial_block.normal_(0.0, 1.0, generator=generator)
 
     def forward(self, styles: torch.Tensor, input_noise: torch.Tensor,
                 style_delta: Optional[torch.Tensor] = None, start_block: int = 0,
@@ -222,14 +275,18 @@ class Generator(nn.Module):
         if initial_state is not None:
             x, rgb = initial_state
         elif start_block == 0:
-            # the stem conv commutes with the batch broadcast of the learned
-            # constant: conv once at batch 1, broadcast the output
-            seed = self.initial_conv(self.initial_block.to(styles.dtype))
-            x = seed.expand(batch, -1, -1, -1)
+            if self.no_const:
+                x = self.initial_conv(self.to_initial_block(styles.mean(dim=1)))
+            else:
+                # the stem conv commutes with the batch broadcast of the
+                # learned constant: conv once at batch 1, broadcast the output
+                seed = self.initial_conv(self.initial_block.to(styles.dtype))
+                x = seed.expand(batch, -1, -1, -1)
             rgb = None
         else:
             raise ValueError("start_block > 0 requires initial_state=(x, rgb)")
 
+        remat = self.remat and torch.is_grad_enabled()
         coords, states = [], []
         offset = 0
         for ind, (block, (in_chan, out_chan)) in enumerate(zip(self.blocks, self.block_dims)):
@@ -240,12 +297,18 @@ class Generator(nn.Module):
                 continue
             if capture_states:
                 states.append((x, rgb))
+            if self.attns[ind] is not None:
+                x = self.attns[ind](x)
             d1 = d2 = None
             if style_delta is not None:
                 d1 = style_delta[:, offset:offset + in_chan]
                 d2 = style_delta[:, offset + in_chan:offset + size]
             offset += size
-            x, rgb, block_coords = block(x, rgb, styles[:, ind], input_noise, d1, d2)
+            args = (x, rgb, styles[:, ind], input_noise, d1, d2)
+            if remat:
+                x, rgb, block_coords = checkpoint(block, *args, use_reentrant=False)
+            else:
+                x, rgb, block_coords = block(*args)
             coords.append(block_coords)
 
         out = (rgb, torch.cat(coords, dim=-1))

@@ -10,6 +10,9 @@ with ``load_state_dict`` (see :mod:`stylex_tpu_torch.models.convert`).
 * OLD: w = [E(x); classifier logits], mapping width = latent_dim;
 * NEW: w = [E(x); softmax(logits)], and prior samples [S(z); probabilities]
   with mapping width latent_dim - num_classes.
+
+The encoder is D's trunk in 'encoder' mode (attention and quantize layers
+included), or with ``encoder_class`` one of the debug encoders.
 """
 
 from __future__ import annotations
@@ -21,35 +24,41 @@ import torch.nn as nn
 
 from stylex_tpu_torch.config import Arch, ModelConfig
 from stylex_tpu_torch.device import resolve_device
+from stylex_tpu_torch.models.debug_encoders import encoder_registry
 from stylex_tpu_torch.models.discriminator import DiscriminatorE
-from stylex_tpu_torch.models.generator import Conv2DMod, Generator
+from stylex_tpu_torch.models.generator import Conv2DMod, Generator, InitialBlockConv
 from stylex_tpu_torch.models.layers import Conv2d, EqualLinear, Linear
 from stylex_tpu_torch.models.mapping import StyleVectorizer
+from stylex_tpu_torch.ops.vq import VectorQuantize
 
 __all__ = ["StylEx", "build_stylex", "make_w", "prior_w", "ema_update"]
 
-_SEEDED = (Linear, Conv2d, EqualLinear, Conv2DMod, Generator)
+_SEEDED = (Linear, Conv2d, EqualLinear, Conv2DMod, Generator, InitialBlockConv, VectorQuantize)
 
 
 class StylEx(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.encoder_class is not None:
-            raise NotImplementedError("debug encoders are not ported yet")
         self.cfg = cfg
 
         def trunk(mode):
+            # the encoder shares D's trunk config, quantize layers included
             return DiscriminatorE(
                 cfg.image_size, cfg.network_capacity, cfg.attn_layers, cfg.transparent,
                 mode=mode, encoder_dim=cfg.encoder_dim, num_classes=cfg.num_classes,
-                fmap_max=cfg.fmap_max, fq_layers=cfg.fq_layers,
+                fmap_max=cfg.fmap_max, fq_layers=cfg.fq_layers, fq_dict_size=cfg.fq_dict_size,
             )
 
         def generator():
             return Generator(cfg.image_size, cfg.latent_dim, cfg.network_capacity,
-                             cfg.transparent, cfg.attn_layers, cfg.no_const, cfg.fmap_max)
+                             cfg.transparent, cfg.attn_layers, cfg.no_const, cfg.fmap_max,
+                             remat=cfg.remat)
 
-        self.encoder = trunk("encoder")
+        if cfg.encoder_class is None:
+            self.encoder = trunk("encoder")
+        else:
+            self.encoder = encoder_registry[cfg.encoder_class](
+                cfg.image_size, 4 if cfg.transparent else 3)
         self.S = StyleVectorizer(cfg.mapping_dim, cfg.style_depth, lr_mul=cfg.lr_mlp)
         self.G = generator()
         self.D = trunk("cond_disc" if cfg.arch == Arch.NEW else "disc")

@@ -21,6 +21,10 @@ agree bit for bit.
 
 ``LAUNCHES`` counts kernel launches per kernel name; only a launch adds to
 it.
+
+``upsample2x_blur`` (the generator's RGB-skip resampler) is the upsample
+followed by the blur, or, on the fused resample graph (``ops.fusion``), one
+polyphase pass in plain PyTorch ops, as the JAX package computes it.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from stylex_tpu_torch import csrc
+from stylex_tpu_torch.ops.fusion import resample_fusion_enabled
 
 __all__ = [
     "LAUNCHES",
@@ -42,6 +47,8 @@ __all__ = [
     "blur3_plain",
     "blur3_downsample2x",
     "blur3_downsample2x_plain",
+    "upsample2x_blur",
+    "upsample2x_blur_unfused",
 ]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in csrc.KERNELS}
@@ -287,3 +294,55 @@ def blur3_downsample2x(x: torch.Tensor) -> torch.Tensor:
     kernel, which never writes the full-resolution blur; CPU tensors the
     plain version."""
     return _apply(x, "blur3_downsample2x")
+
+
+# ------------------------------------------------------ fused upsample + blur
+
+
+def upsample2x_blur_unfused(x: torch.Tensor) -> torch.Tensor:
+    """The literal RGB-skip resampler: bilinear 2x, then the blur (two
+    kernel launches on CUDA tensors)."""
+    return blur3(upsample2x_bilinear(x))
+
+
+# Per-axis polyphase taps of blur3 o upsample2x_bilinear on the edge-clamped
+# coarse grid (half-pixel bilinear y[2i] = x[i-1]/4 + 3x[i]/4, y[2i+1] =
+# 3x[i]/4 + x[i+1]/4; blur z[f] = y[f-1]/4 + y[f]/2 + y[f+1]/4):
+#   z[2i]   = 0.3125 x[i-1] + 0.625 x[i] + 0.0625 x[i+1]
+#   z[2i+1] = 0.0625 x[i-1] + 0.625 x[i] + 0.3125 x[i+1]
+# except at the two outer fine rows, where the blur's reflect padding meets
+# the upsample's clamp: z[0] = 0.875 x[0] + 0.125 x[1], z[2N-1] mirrored.
+# Every tap is a dyadic, exact in bfloat16.
+_UPBLUR_EVEN = (0.3125, 0.625, 0.0625)
+_UPBLUR_ODD = (0.0625, 0.625, 0.3125)
+
+
+def _upsample2x_blur_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
+    n = x.shape[dim]
+    first, last = x.narrow(dim, 0, 1), x.narrow(dim, n - 1, 1)
+    lo = torch.cat([first, x.narrow(dim, 0, n - 1)], dim)
+    hi = torch.cat([x.narrow(dim, 1, n - 1), last], dim)
+    (e0, e1, e2), (o0, o1, o2) = _UPBLUR_EVEN, _UPBLUR_ODD
+    even = lo * e0 + x * e1 + hi * e2
+    odd = lo * o0 + x * o1 + hi * o2
+    z = torch.stack([even, odd], dim=dim + 1).flatten(dim, dim + 1)
+    top = first * 0.875 + x.narrow(dim, 1, 1) * 0.125
+    bottom = x.narrow(dim, n - 2, 1) * 0.125 + last * 0.875
+    return torch.cat([top, z.narrow(dim, 1, 2 * n - 2), bottom], dim)
+
+
+def upsample2x_blur(x: torch.Tensor) -> torch.Tensor:
+    """``blur3(upsample2x_bilinear(x))``, (B, C, H, W) -> (B, C, 2H, 2W).
+
+    With fusion on (``ops.fusion``) and H, W >= 2 it is one separable
+    polyphase pass on the coarse grid (taps above), the fine grid written
+    once, already blurred; equal to the literal composition to rounding.
+    Otherwise it is the literal composition, which launches the two
+    kernels on CUDA tensors. The fused form is plain PyTorch ops, as the
+    JAX package computes it outside any Pallas kernel; autograd through it
+    is its exact transpose.
+    """
+    h, w = x.shape[-2:]
+    if h < 2 or w < 2 or not resample_fusion_enabled():
+        return upsample2x_blur_unfused(x)
+    return _upsample2x_blur_axis(_upsample2x_blur_axis(x, 2), 3)

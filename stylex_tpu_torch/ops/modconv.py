@@ -22,8 +22,9 @@ from __future__ import annotations
 import torch
 
 from stylex_tpu_torch.ops.conv import conv2d
+from stylex_tpu_torch.ops.upconv import upsample2x_conv3x3_same
 
-__all__ = ["demod_scale", "modulated_conv2d"]
+__all__ = ["demod_scale", "modulated_conv2d", "modulated_upsample_conv2d"]
 
 
 def demod_scale(weight: torch.Tensor, style_plus_one: torch.Tensor,
@@ -55,6 +56,23 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, style: torch.Tensor,
     x = x * s[:, :, None, None].to(x.dtype)
     k = weight.shape[-1]
     y = conv2d(x, weight.to(x.dtype), padding=(k - 1) // 2)
+    if demod:
+        d = demod_scale(weight, s, eps)
+        y = y * d[:, :, None, None].to(y.dtype)
+    return y
+
+
+def modulated_upsample_conv2d(x: torch.Tensor, weight: torch.Tensor, style: torch.Tensor, *,
+                              demod: bool = True, eps: float = 1e-8) -> torch.Tensor:
+    """``modulated_conv2d(upsample2x_bilinear(x), weight, style)`` without
+    the 4x-area intermediate: modulation scales input channels, so it
+    commutes with the upsample; the upsample and the 3x3 conv are one
+    coarse-grid conv (:mod:`ops.upconv`); demodulation uses the fine
+    kernel, as in :func:`modulated_conv2d`. 3x3 kernels only.
+    """
+    s = style + 1.0
+    x = x * s[:, :, None, None].to(x.dtype)
+    y = upsample2x_conv3x3_same(x, weight)
     if demod:
         d = demod_scale(weight, s, eps)
         y = y * d[:, :, None, None].to(y.dtype)

@@ -113,6 +113,7 @@ def main(argv=None) -> None:
     from stylex_tpu_torch.data import SyntheticImageDataset
     from stylex_tpu_torch.device import resolve_device
     from stylex_tpu_torch.models import build_classifier, build_stylex
+    from stylex_tpu_torch.ops.fusion import prefer_literal_resample
     from stylex_tpu_torch.ops.latents import image_noise
 
     device = resolve_device(None)
@@ -125,7 +126,8 @@ def main(argv=None) -> None:
     images = torch.from_numpy(np.stack([ds[i] for i in range(n_img)]).transpose(0, 3, 1, 2).copy())
     noise = image_noise(torch.Generator().manual_seed(42), 1, cfg.image_size).to(device, dtype)
 
-    with torch.no_grad():
+    # the sweep's graph: literal resampling, as attfind_extraction runs it
+    with torch.no_grad(), prefer_literal_resample():
         w, coords, _, base, states = _phase1(model, clf.classify_images,
                                              images.to(device, dtype), noise, True)
         mins, maxs = coords.min(0).values, coords.max(0).values

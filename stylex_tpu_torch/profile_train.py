@@ -4,7 +4,9 @@
 
 Builds the ``Trainer`` at the CLI defaults (64px, capacity 16, OLD arch,
 ResNet-18, batch 4 x 8 micro-batches, the 512-image synthetic set, random
-weights from seed 0; no PL before step 5000, so none here), takes 4
+weights from seed 0; no PL before step 5000, so none here; the default
+resample graph, fused, or the literal one with
+``STYLEX_TPU_NO_FUSED_UPCONV=1`` in the environment), takes 4
 warm-up steps (step 0 saves and evaluates), times one GP cycle of 4 steps
 (``gp_every``: one GP step, three plain ones) with CUDA events, then traces
 the next cycle with ``torch.profiler``. Prints ms per step, the device time

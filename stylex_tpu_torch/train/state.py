@@ -61,7 +61,7 @@ class TrainState:
 
     @property
     def device(self) -> torch.device:
-        return self.model.G.initial_block.device
+        return self.model.G.initial_conv.weight.device
 
 
 def create_train_state(model: StylEx, model_cfg: ModelConfig,
@@ -71,5 +71,5 @@ def create_train_state(model: StylEx, model_cfg: ModelConfig,
     for name in ("SE", "GE"):
         getattr(model, name).requires_grad_(False)
     g_opt, d_opt = make_optimizers(model, model_cfg, train_cfg)
-    device = model.G.initial_block.device
+    device = model.G.initial_conv.weight.device
     return TrainState(model, g_opt, d_opt, 0, torch.tensor(-1.0, device=device))

@@ -1,15 +1,22 @@
-"""The StylEx train step: the JAX package's fused-microbatch ("wide") step,
-in eager PyTorch.
+"""The StylEx train step: the JAX package's train steps in eager PyTorch.
 
-One call runs a whole optimizer step over ``gradient_accumulate_every``
-(A) micro-batches of B images, batched as A*B samples:
+With ``fused_microbatches`` (the default) one call runs a whole optimizer
+step over ``gradient_accumulate_every`` (A) micro-batches of B images,
+batched as A*B samples. Without it (the scan step) the same phases run one
+micro-batch at a time, as the reference's loop does, and the step sums each
+micro-batch's gradients and losses / A: the same step up to the order of
+float sums, with per-micro-batch draws and penalties.
 
 1. D phase: w for every micro-batch (encoder micro-batches through E and
    the classifier, prior ones through S with style mixing), fakes without
    gradient, one D pass over [aug(fake); aug(real)], the hinge (or dual
-   contrastive) loss with per-micro-batch relativistic means, and on GP
-   steps the R1-style gradient penalty on the reals. D is updated before
-   the G phase runs.
+   contrastive) loss with per-micro-batch relativistic means, on GP steps
+   the R1-style gradient penalty on the reals, with ``fq_layers`` the
+   quantize layers' commitment losses of the scoring pass, and with
+   ``cl_reg`` the contrastive loss of two views of the reals (and, after
+   step 20,000, of the fakes). D is updated; then, with ``fq_layers``, the
+   codebooks of D and E take their EMA update from the last real and the
+   last encoder micro-batch, before the G phase runs.
 2. G phase: fakes with gradient, D scores with per-micro-batch top-k (or
    the dual contrastive loss against detached real scores), on PL steps the
    path-length penalty, and on encoder micro-batches the reconstruction
@@ -27,7 +34,7 @@ the frozen classifier and the EMA copies take none. Both penalties are
 second-order, so their gradients differentiate through the kernels'
 backward (``ops/blur.py``). Randomness arrives as a :class:`StepDraws`,
 from :func:`draw_step` or from the caller (the tests pass in the JAX
-package's draws).
+package's draws); both steps read the same draws.
 
 ``compute_dtype='bfloat16'``: each net runs on bfloat16 copies of its
 float32 parameters, cast on the autograd graph inside the loss
@@ -42,7 +49,7 @@ classifier in float64.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.func import functional_call
@@ -57,6 +64,7 @@ from stylex_tpu_torch.losses import (
     path_lengths,
     reconstruction_loss,
 )
+from stylex_tpu_torch.losses.contrastive import contrastive_d_loss, draw_views
 from stylex_tpu_torch.models.stylex import ema_update, make_w
 from stylex_tpu_torch.ops.diffaug import AugmentDraws, augment_for_discriminator, draw_augment
 from stylex_tpu_torch.train.state import TrainState, g_parameters
@@ -69,6 +77,11 @@ __all__ = [
     "microbatch_schedule",
     "step_flags",
 ]
+
+# fakes join the contrastive regulariser after this step
+CL_GEN_START = 20_000
+
+Views = Tuple[AugmentDraws, AugmentDraws]
 
 
 class PhaseDraws(NamedTuple):
@@ -83,6 +96,8 @@ class PhaseDraws(NamedTuple):
       None without augmentation.
     pl_noise: (A, B, C, S, S) unit normal projection noise of the
       path-length penalty (G phase of a PL step), else None.
+    cl_real, cl_fake: the two contrastive views' draws over the A*B reals
+      (D phase with ``cl_reg``) and fakes (after step 20,000), else None.
     """
 
     z1: torch.Tensor
@@ -93,6 +108,8 @@ class PhaseDraws(NamedTuple):
     aug_fake: Optional[AugmentDraws]
     aug_real: Optional[AugmentDraws]
     pl_noise: Optional[torch.Tensor] = None
+    cl_real: Optional[Views] = None
+    cl_fake: Optional[Views] = None
 
 
 class StepDraws(NamedTuple):
@@ -113,6 +130,7 @@ def step_flags(tc: TrainConfig, step: int) -> Dict[str, bool]:
         pl=(not tc.no_pl_reg) and step > tc.pl_start_step and step % tc.pl_every == 0,
         ema=step % tc.ema_every == 0 and step > tc.ema_start_step,
         ema_reset=step <= tc.ema_reset_until and step % tc.ema_reset_every == 2,
+        cl_gen=tc.cl_reg and step > CL_GEN_START,
     )
 
 
@@ -123,8 +141,9 @@ def draw_step(generator: torch.Generator, model_cfg: ModelConfig, train_cfg: Tra
     A, B, S = tc.gradient_accumulate_every, batch_size, model_cfg.image_size
     P = A - sum(microbatch_schedule(A, tc.alternating_training))
     channels = 4 if model_cfg.transparent else 3
+    flags = step_flags(tc, step)
 
-    def phase(with_pl: bool) -> PhaseDraws:
+    def phase(d_phase: bool) -> PhaseDraws:
         def randn(*shape):
             return torch.randn(*shape, generator=generator, device=dev)
 
@@ -136,10 +155,35 @@ def draw_step(generator: torch.Generator, model_cfg: ModelConfig, train_cfg: Tra
             noise=torch.rand(A, B, S, S, 1, generator=generator, device=dev),
             aug_fake=draw_augment(generator, A, B, S, aug_prob, tc.aug_types),
             aug_real=draw_augment(generator, A, B, S, aug_prob, tc.aug_types),
-            pl_noise=randn(A, B, channels, S, S) if with_pl else None,
+            pl_noise=randn(A, B, channels, S, S) if flags["pl"] and not d_phase else None,
+            cl_real=draw_views(generator, A, B, S) if tc.cl_reg and d_phase else None,
+            cl_fake=draw_views(generator, A, B, S) if flags["cl_gen"] and d_phase else None,
         )
 
-    return StepDraws(phase(False), phase(step_flags(tc, step)["pl"]))
+    return StepDraws(phase(True), phase(False))
+
+
+def _take(x, lo: int, hi: int):
+    """Rows lo:hi of every tensor in a (nested) tuple of draws; None stays."""
+    if x is None:
+        return None
+    if torch.is_tensor(x):
+        return x[lo:hi]
+    parts = [_take(v, lo, hi) for v in x]
+    return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+
+
+def _micro_draws(dr: PhaseDraws, i: int, B: int, prior_pos: Optional[int]) -> PhaseDraws:
+    """Micro-batch ``i``'s draws; ``prior_pos`` is its place among the prior
+    micro-batches (None for an encoder micro-batch)."""
+    p = (0, 0) if prior_pos is None else (prior_pos, prior_pos + 1)
+    return PhaseDraws(
+        *(_take(t, *p) for t in (dr.z1, dr.z2, dr.mixed, dr.cutoff)),
+        noise=dr.noise[i:i + 1],
+        **{k: _take(getattr(dr, k), i * B, (i + 1) * B)
+           for k in ("aug_fake", "aug_real", "cl_real", "cl_fake")},
+        pl_noise=_take(dr.pl_noise, i, i + 1),
+    )
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -163,10 +207,10 @@ def _cast(module: torch.nn.Module, dtype: torch.dtype) -> Callable:
         return module
     params = {n: p.to(dtype) for n, p in module.named_parameters()}
 
-    def call(*args):
+    def call(*args, **kwargs):
         args = tuple(a.to(dtype) if torch.is_tensor(a) and a.is_floating_point() else a
                      for a in args)
-        return functional_call(module, params, args)
+        return functional_call(module, params, args, kwargs)
 
     return call
 
@@ -179,6 +223,15 @@ def _apply_grads(opt: torch.optim.Optimizer, params, grads) -> None:
         p.grad = None
 
 
+def _add(acc, grads, scale: float):
+    """``acc + scale * grads`` elementwise over lists (None counts as 0)."""
+    if scale != 1.0:
+        grads = [None if g is None else g * scale for g in grads]
+    if acc is None:
+        return list(grads)
+    return [a if g is None else g if a is None else a + g for a, g in zip(acc, grads)]
+
+
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                     classifier_fn: Callable[[torch.Tensor], torch.Tensor], lpips_params,
                     aug_prob: Optional[float] = None):
@@ -189,21 +242,13 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     (G phase), ``g_real`` with ``dual_contrast_loss``, and an optional int
     ``top_k``. The step updates ``state`` in place and returns 0-d float32
     tensors on the device: ``d_loss``, ``g_loss``, ``rec_loss``,
-    ``kl_loss``, ``gp``, ``pl_mean``. ``aug_prob`` overrides the config's
-    (None there means 0).
+    ``kl_loss``, ``gp``, ``pl_mean``, and ``q_loss`` with ``fq_layers``,
+    ``cr_loss`` with ``cl_reg``. ``aug_prob`` overrides the config's (None
+    there means 0).
     """
     cfg, tc = model_cfg, train_cfg
-    if tc.cl_reg:
-        raise NotImplementedError("cl_reg (contrastive D regularisation) is not ported yet")
-    if cfg.fq_layers:
-        raise NotImplementedError("fq_layers (D feature quantization) is not ported yet")
-    if not tc.fused_microbatches:
-        raise NotImplementedError("only the fused-microbatch step is ported; "
-                                  "fused_microbatches=False is not")
     A = tc.gradient_accumulate_every
     schedule = microbatch_schedule(A, tc.alternating_training)
-    enc_idx = [i for i, f in enumerate(schedule) if f]
-    prior_idx = [i for i, f in enumerate(schedule) if not f]
     dtype = torch.float64 if tc.compute_dtype == "float64" else resolve_dtype(tc.compute_dtype)
     wide = torch.promote_types(dtype, torch.float32)  # images, scores and losses
     L = int(math.log2(cfg.image_size)) - 1  # generator layers
@@ -220,11 +265,14 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     def augment(x, draws):
         return augment_for_discriminator(x.to(dtype), draws if aug_prob > 0 else None, aug_types)
 
-    def assemble_w(nets, dr: PhaseDraws, imgs, logits_all, probs_all):
-        """(A, B, L, D) w in schedule order, with the encoder micro-batches'
-        encodings, images and logits (flattened), or Nones."""
-        B = imgs.shape[1]
-        parts: List[Optional[torch.Tensor]] = [None] * A
+    def assemble_w(nets, dr: PhaseDraws, imgs, logits_all, probs_all, sched):
+        """(n, B, L, D) w of the n micro-batches of ``sched`` in order, with
+        the encoder micro-batches' encodings, images and logits
+        (flattened), or Nones."""
+        n, B = len(sched), imgs.shape[1]
+        enc_idx = [i for i, f in enumerate(sched) if f]
+        prior_idx = [i for i, f in enumerate(sched) if not f]
+        parts: List[Optional[torch.Tensor]] = [None] * n
         enc_out = enc_imgs = enc_logits = None
         if enc_idx:
             enc_imgs = _flat(imgs[enc_idx])
@@ -256,44 +304,62 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         return {name: _cast(getattr(model, name), dtype) for name in names}
 
     def conditioning(imgs):
-        """NEW arch: (A, B, K) logits and probabilities of the real images."""
+        """NEW arch: (n, B, K) logits and probabilities of the real images."""
         if not new:
             return None, None
         with torch.no_grad():
             logits = classify(_flat(imgs)).reshape(imgs.shape[0], imgs.shape[1], -1)
         return logits, torch.softmax(logits, dim=-1)
 
+    # The phases take any run of micro-batches (all of them in the fused
+    # step, one at a time in the scan step) and return their losses as
+    # means over those micro-batches, and the gradients of those means.
+
     # ------------------------------------------------------------- D phase
-    def d_phase(state: TrainState, imgs, dr: PhaseDraws, apply_gp: bool):
+    def d_phase(state: TrainState, imgs, dr: PhaseDraws, sched, flags):
         model = state.model
         d_real, d_enc = imgs["d_real"], imgs["d_enc"]
-        B = d_real.shape[1]
-        AB = A * B
+        n, B = len(sched), d_real.shape[1]
+        enc_idx = [i for i, f in enumerate(sched) if f]
         logits_all, probs_all = conditioning(d_enc)
         probs_flat = _flat(probs_all) if new else None
         with torch.no_grad():
             nets = nets_of(model, ("encoder", "S", "G"))
-            w_all, _, enc_imgs, enc_logits = assemble_w(nets, dr, d_enc, logits_all, probs_all)
+            w_all, _, enc_imgs, enc_logits = assemble_w(nets, dr, d_enc, logits_all, probs_all,
+                                                        sched)
             fake = nets["G"](_flat(w_all), _flat(dr.noise))[0]
 
         D = _cast(model.D, dtype)
         real_flat = _flat(d_real)
         probs2 = torch.cat([probs_flat, probs_flat]) if new else None
         both = torch.cat([augment(fake, dr.aug_fake), augment(real_flat, dr.aug_real)])
-        scores = D(both, probs2).to(wide)
-        fake_s, real_s = scores[:AB].reshape(A, B), scores[AB:].reshape(A, B)
+        scores, q_loss = D(both, probs2, return_q_loss=True)
+        scores, q_loss = scores.to(wide), q_loss.to(wide)
+        # each commitment loss is a mean over the 2nB batch: x2 gives the
+        # fake pass's plus the real pass's
+        q_loss = 2.0 * q_loss
+        fake_s, real_s = scores[:n * B].reshape(n, B), scores[n * B:].reshape(n, B)
         r, f = real_s, fake_s
         if tc.rel_disc_loss:  # per-micro-batch means
             r = real_s - fake_s.mean(dim=1, keepdim=True)
             f = fake_s - real_s.mean(dim=1, keepdim=True)
         if tc.dual_contrast_loss:
-            div = torch.stack([dual_contrastive_loss(r[i], f[i]) for i in range(A)]).mean()
+            div = torch.stack([dual_contrastive_loss(r[i], f[i]) for i in range(n)]).mean()
         else:
             div = d_hinge_loss(r, f)
-        gp = torch.zeros((), device=div.device)
-        if apply_gp:
+        zero = torch.zeros((), dtype=wide, device=div.device)
+        gp = zero
+        if flags["gp"]:
             gp = gradient_penalty(lambda im: D(augment(im, dr.aug_real), probs_flat), real_flat)
-        d_grads = torch.autograd.grad(div + gp, list(model.D.parameters()))
+        cr = zero
+        if tc.cl_reg:
+            def features(im):
+                return D(im, return_features=True)
+
+            cr = contrastive_d_loss(features, real_flat.to(dtype), dr.cl_real, n).to(wide)
+            if flags["cl_gen"]:
+                cr = cr + contrastive_d_loss(features, fake, dr.cl_fake, n).to(wide)
+        d_grads = torch.autograd.grad(div + gp + q_loss + cr, list(model.D.parameters()))
 
         gside = None
         if tc.kl_rec_during_disc and new and enc_idx:
@@ -305,30 +371,33 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
             rec = tc.rec_scaling * reconstruction_loss(
                 lpips_params, enc_imgs, fake2, model.encoder(fake2), enc_out)
             kl = tc.kl_scaling * classifier_kl_loss(enc_logits, classify(fake2))
-            gside = torch.autograd.grad((rec + kl) * (len(enc_idx) / A), g_parameters(model),
+            gside = torch.autograd.grad((rec + kl) * (len(enc_idx) / n), g_parameters(model),
                                         allow_unused=True)
-        return d_grads, gside, div.detach(), gp.detach()
+        losses = dict(d_loss=div, gp=gp, q_loss=q_loss, cr_loss=cr)
+        return d_grads, gside, {k: v.detach() for k, v in losses.items()}
 
     # ------------------------------------------------------------- G phase
-    def g_phase(state: TrainState, imgs, dr: PhaseDraws, apply_pl: bool, top_k: int, gside):
+    def g_phase(state: TrainState, imgs, dr: PhaseDraws, sched, flags, top_k: int):
         model = state.model
         g_imgs = imgs["g_imgs"]
-        B = g_imgs.shape[1]
+        n, B = len(sched), g_imgs.shape[1]
+        enc_idx = [i for i, f in enumerate(sched) if f]
         zero = torch.zeros((), device=g_imgs.device)
         logits_all, probs_all = conditioning(g_imgs)
         probs_flat = _flat(probs_all) if new else None
         nets = nets_of(model, ("encoder", "S", "G", "D"))
-        w_all, enc_out, enc_imgs, enc_logits = assemble_w(nets, dr, g_imgs, logits_all, probs_all)
+        w_all, enc_out, enc_imgs, enc_logits = assemble_w(nets, dr, g_imgs, logits_all, probs_all,
+                                                          sched)
         w_flat, noise_flat = _flat(w_all), _flat(dr.noise)
         fake = nets["G"](w_flat, noise_flat)[0]
-        fake_s = nets["D"](augment(fake, dr.aug_fake), probs_flat).to(wide).reshape(A, B)
+        fake_s = nets["D"](augment(fake, dr.aug_fake), probs_flat).to(wide).reshape(n, B)
 
         if tc.dual_contrast_loss:
             with torch.no_grad():
                 real_s = nets["D"](augment(_flat(imgs["g_real"]), dr.aug_real),
-                                   probs_flat).to(wide).reshape(A, B)
+                                   probs_flat).to(wide).reshape(n, B)
             gen = torch.stack([dual_contrastive_loss(fake_s[i], real_s[i])
-                               for i in range(A)]).mean()
+                               for i in range(n)]).mean()
         else:
             # per-micro-batch top-k: the k smallest scores
             ranked = fake_s.sort(dim=1).values
@@ -336,29 +405,77 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
             gen = ((ranked * keep).sum(dim=1) / max(top_k, 1)).mean()
 
         pl_pen = pl_len = zero
-        if apply_pl:
+        if flags["pl"]:
             if dr.pl_noise is None:
                 raise ValueError("a path-length step needs draws.g.pl_noise")
             lengths = path_lengths(lambda w: nets["G"](w, noise_flat)[0], w_flat,
-                                   _flat(dr.pl_noise)).to(wide).reshape(A, B)
+                                   _flat(dr.pl_noise)).to(wide).reshape(n, B)
             pens = (lengths - state.pl_mean).square().mean(dim=1)
             pl_pen = torch.where(state.pl_mean >= 0, pens, torch.zeros_like(pens)).mean()
             pl_len = lengths[-1].mean().detach()  # the last micro-batch's mean length
 
         rec = kl = zero
         if enc_idx:
-            fake_enc = _flat(fake.reshape(A, B, *fake.shape[1:])[enc_idx])
-            scale = len(enc_idx) / A
+            fake_enc = _flat(fake.reshape(n, B, *fake.shape[1:])[enc_idx])
+            scale = len(enc_idx) / n
             rec = eff_rec * scale * reconstruction_loss(
                 lpips_params, enc_imgs, fake_enc, nets["encoder"](fake_enc), enc_out)
             kl = eff_kl * scale * classifier_kl_loss(enc_logits, classify(fake_enc))
 
-        params = g_parameters(model)
-        grads = torch.autograd.grad(gen + pl_pen + rec + kl, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        if gside is not None:
-            grads = [g if s is None else g + s for g, s in zip(grads, gside)]
-        return grads, gen.detach(), rec.detach(), kl.detach(), pl_len
+        grads = torch.autograd.grad(gen + pl_pen + rec + kl, g_parameters(model),
+                                    allow_unused=True)
+        losses = dict(g_loss=gen, rec_loss=rec, kl_loss=kl)
+        return grads, {k: v.detach() for k, v in losses.items()}, pl_len
+
+    # ---------------------------------------------- fused and scan phases
+    def scan_micro(imgs, dr: PhaseDraws, i: int):
+        """Micro-batch ``i``'s images, draws and schedule."""
+        B = imgs["d_real"].shape[1]
+        prior_pos = sum(1 for f in schedule[:i] if not f)
+        return ({k: v[i:i + 1] for k, v in imgs.items()},
+                _micro_draws(dr, i, B, None if schedule[i] else prior_pos), [schedule[i]])
+
+    def run_d(state, imgs, dr: PhaseDraws, flags):
+        """(D gradients, encoder/S/G gradients from the D phase or None,
+        losses)."""
+        if tc.fused_microbatches:
+            return d_phase(state, imgs, dr, schedule, flags)
+        d_grads = gside = None
+        losses: Dict[str, torch.Tensor] = {}
+        for i in range(A):
+            grads, side, part = d_phase(state, *scan_micro(imgs, dr, i), flags)
+            d_grads = _add(d_grads, grads, 1.0 / A)
+            if side is not None:
+                gside = _add(gside, side, 1.0 / A)
+            losses = {k: losses.get(k, 0.0) + v / A for k, v in part.items()}
+        return d_grads, gside, losses
+
+    def run_g(state, imgs, dr: PhaseDraws, flags, top_k: int, gside):
+        """(encoder/S/G gradients, gside added; losses; the last
+        micro-batch's mean path length)."""
+        if tc.fused_microbatches:
+            grads, losses, pl_len = g_phase(state, imgs, dr, schedule, flags, top_k)
+            return _add(gside, grads, 1.0), losses, pl_len
+        g_grads, losses, pl_len = gside, {}, None
+        for i in range(A):
+            grads, part, pl_len = g_phase(state, *scan_micro(imgs, dr, i), flags, top_k)
+            g_grads = _add(g_grads, grads, 1.0 / A)
+            losses = {k: losses.get(k, 0.0) + v / A for k, v in part.items()}
+        return g_grads, losses, pl_len
+
+    @torch.no_grad()
+    def update_codebooks(model, imgs):
+        """The quantize layers' EMA update, on the last real micro-batch
+        through D (uniform class probabilities in the NEW arch) and the last
+        encoder-input micro-batch through E."""
+        last_real = imgs["d_real"][-1].to(torch.float32)
+        uniform = None
+        if new:
+            uniform = last_real.new_full((last_real.shape[0], cfg.num_classes),
+                                         1.0 / cfg.num_classes)
+        model.D(last_real, uniform, update_vq=True)
+        if cfg.encoder_class is None:
+            model.encoder(imgs["d_enc"][-1].to(torch.float32), update_vq=True)
 
     # ------------------------------------------------------------ full step
     def step(state: TrainState, batch, draws: StepDraws) -> Dict[str, torch.Tensor]:
@@ -369,11 +486,15 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         flags = step_flags(tc, state.step)
         top_k = int(batch.get("top_k", imgs["g_imgs"].shape[1]))
 
-        d_grads, gside, div, gp = d_phase(state, imgs, draws.d, flags["gp"])
+        d_grads, gside, d_losses = run_d(state, imgs, draws.d, flags)
         _apply_grads(state.d_opt, list(model.D.parameters()), d_grads)
+        if cfg.fq_layers:
+            update_codebooks(model, imgs)
 
-        g_grads, gen, rec, kl, pl_len = g_phase(state, imgs, draws.g, flags["pl"], top_k, gside)
-        _apply_grads(state.g_opt, g_parameters(model), g_grads)
+        g_grads, g_losses, pl_len = run_g(state, imgs, draws.g, flags, top_k, gside)
+        params = g_parameters(model)
+        g_grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, g_grads)]
+        _apply_grads(state.g_opt, params, g_grads)
 
         if flags["pl"]:
             state.pl_mean = torch.where(state.pl_mean < 0, pl_len,
@@ -385,7 +506,12 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 elif flags["ema"]:
                     ema_update(ema, live, tc.ema_beta)
         state.step += 1
-        return {"d_loss": div, "g_loss": gen, "rec_loss": rec, "kl_loss": kl, "gp": gp,
-                "pl_mean": state.pl_mean.detach().clone()}
+        metrics = {**{k: d_losses[k] for k in ("d_loss", "gp")}, **g_losses,
+                   "pl_mean": state.pl_mean.detach().clone()}
+        if cfg.fq_layers:
+            metrics["q_loss"] = d_losses["q_loss"]
+        if tc.cl_reg:
+            metrics["cr_loss"] = d_losses["cr_loss"]
+        return metrics
 
     return step

@@ -128,3 +128,24 @@ def test_cli_runs_attfind_on_cpu(tmp_path, capsys, resume):
                                   np.stack([SyntheticImageDataset(2, 16)[i] for i in range(2)]))
     top = json.loads((out / "top_styles.json").read_text())
     assert top["ranked"] and all(d in (0, 1) and 0 <= s < C for d, s in top["ranked"])
+
+
+def test_cli_trains_with_attention_no_const_and_cl_reg(tmp_path):
+    """Two training steps at the tiny config with the model and step
+    options the CLI passes through; the checkpoint holds the attention and
+    the no_const stem."""
+    from stylex_tpu_torch import cli
+
+    cli.main(["--dataset-name", "synthetic", "--device", "cpu", "--image-size", "16",
+              "--network-capacity", "4", "--batch-size", "2", "--gradient-accumulate-every", "2",
+              "--num-train-steps", "2", "--save-every", "1000", "--evaluate-every", "1000",
+              "--classifier-name", "mobilenet", "--aug-prob", "0.0", "--num-image-tiles", "2",
+              "--attn-layers", "[1]", "--no-const", "--cl-reg", "--name", "v",
+              "--results-dir", str(tmp_path / "r"), "--models-dir", str(tmp_path / "m")])
+    cfg = ModelConfig.from_json((tmp_path / "m" / "v" / ".config.json").read_text())
+    assert cfg.attn_layers == (1,) and cfg.no_const
+    sd = torch.load(tmp_path / "m" / "v" / "model_0.pt", weights_only=True)["StylEx"]
+    assert "G.to_initial_block.weight" in sd and "G.initial_block" not in sd
+    assert any(k.startswith("G.attns.2.") for k in sd)
+    header, *rows = (tmp_path / "r" / "v" / "metrics.csv").read_text().splitlines()
+    assert len(rows) == 2 and "cr_loss" in header.split(",")

@@ -26,6 +26,15 @@ def jax_draws(key, n, size, prob, types):
     """The draws ``augment_for_discriminator(key, x, prob, types)`` makes
     for n square images, as the port's :class:`AugmentDraws`."""
     k_gate, k_flip, k_aug = jax.random.split(key, 3)
+    gate = bool(jax.random.bernoulli(k_gate, prob))
+    flip = bool(jax.random.bernoulli(k_flip, 0.5))
+    return taug.AugmentDraws(torch.full((n,), gate), torch.full((n,), flip),
+                             jax_pipeline_draws(k_aug, n, size, types))
+
+
+def jax_pipeline_draws(k_aug, n, size, types):
+    """The draws of ``diff_augment(k_aug, x, types)`` for n square images,
+    as the ``ops`` of the port's :class:`AugmentDraws`."""
     t = lambda a, dt=torch.int64: torch.from_numpy(np.array(a).reshape(-1)).to(dt)
     ops = []
     for name, arg in (s for ty in types for s in jaug.AUGMENT_TYPES[ty]):
@@ -49,9 +58,7 @@ def jax_draws(key, n, size, prob, types):
             vh = t(jax.random.randint(kh, (n,), 0, max_h + 1) * 2 - max_h) if max_h > 0 else None
             vv = t(jax.random.randint(kv, (n,), 0, max_v + 1) * 2 - max_v) if max_v > 0 else None
             ops.append((vh, vv))
-    gate = bool(jax.random.bernoulli(k_gate, prob))
-    flip = bool(jax.random.bernoulli(k_flip, 0.5))
-    return taug.AugmentDraws(torch.full((n,), gate), torch.full((n,), flip), tuple(ops))
+    return tuple(ops)
 
 
 def _images(seed, n=3, size=16):

@@ -50,7 +50,7 @@ from stylex_tpu_torch.models.stylex import StylEx
 from stylex_tpu_torch.ops import diffaug as taug
 from stylex_tpu_torch.train import PhaseDraws, StepDraws, create_train_state, make_train_step
 
-from test_torch_diffaug import jax_draws as jax_aug_draws
+from test_torch_diffaug import jax_draws as jax_aug_draws, jax_pipeline_draws
 
 torch.set_num_threads(2)
 
@@ -120,7 +120,21 @@ def jax_draws(rng, jcfg, jtc, num_layers):
         return PhaseDraws(t(z1, shape=(B, jcfg.mapping_dim)), t(z2, shape=(B, jcfg.mapping_dim)),
                           t(mixed, torch.bool), t(cutoff, torch.int64), t(noise),
                           aug(keys, 2), aug(keys, 3),
-                          None if pl is None else torch.from_numpy(pl.copy()))
+                          None if pl is None else torch.from_numpy(pl.copy()),
+                          views(keys, 4) if jtc.cl_reg and not with_pl else None)
+
+    def views(keys, j):
+        """``contrastive_views``' draws (key split 4-way: ops and flip of
+        view 1, then of view 2) of every micro-batch."""
+        parts = [jax.random.split(keys[i][j], 4) for i in range(A)]
+
+        def view(k_ops, k_flip):
+            return _cat_aug([taug.AugmentDraws(
+                torch.ones(B, dtype=torch.bool),
+                torch.full((B,), bool(jax.random.bernoulli(p[k_flip], 0.5))),
+                jax_pipeline_draws(p[k_ops], B, S, ("translation", "cutout"))) for p in parts])
+
+        return view(0, 1), view(2, 3)
 
     rng_d, rng_g = jax.random.split(rng)
     return StepDraws(phase(chain(rng_d, 7), False), phase(chain(rng_g, 6), True))
@@ -139,9 +153,12 @@ class _AddGrad(torch.optim.Optimizer):
                 p.add_(p.grad)
 
 
-def _setup(arch, **overrides):
+def _setup(arch, model=None, **overrides):
+    """The JAX step and the port's at the TINY config of ``arch`` with
+    ``model`` (ModelConfig fields) and ``overrides`` (TrainConfig fields)."""
     tc_kwargs = {**TC, **overrides}
-    jcfg = JModelConfig(arch=JArch(arch), **TINY)
+    model_kwargs = {**TINY, **(model or {})}
+    jcfg = JModelConfig(arch=JArch(arch), **model_kwargs)
     jtc = JTrainConfig(**tc_kwargs)
     modules = j_build_stylex(jcfg)
     state, _, _ = j_create_train_state(jax.random.PRNGKey(0), modules, jcfg, jtc)
@@ -151,7 +168,7 @@ def _setup(arch, **overrides):
     jstep = jax.jit(j_make_train_step(modules, jclf.classify_images, jlp, jcfg, jtc, add, add))
     state = state.replace(g_opt_state=add.init(None), d_opt_state=add.init(None))
 
-    cfg, tc = ModelConfig(arch=Arch(arch), **TINY), TrainConfig(**tc_kwargs)
+    cfg, tc = ModelConfig(arch=Arch(arch), **model_kwargs), TrainConfig(**tc_kwargs)
     clf = build_classifier("mobilenet", cfg.image_size, device="cpu")
     clf.net.load_state_dict(classifier_state_dict_from_jax(_np(jclf.variables), "mobilenet"))
     clf.net.requires_grad_(False)
@@ -194,7 +211,8 @@ def _port_state(p, jstate):
 
 def _assert_trees_close(got_sd, want_sd, names, what):
     for name in names:
-        keys = [k for k in want_sd if k.startswith(name + ".")]
+        # the quantize layers' codebooks are buffers: compare_step holds them
+        keys = [k for k in want_sd if k.startswith(name + ".") and ".quantize_blocks." not in k]
         scale = max(float(np.abs(want_sd[k].numpy()).max()) for k in keys)
         for k in keys:
             np.testing.assert_allclose(got_sd[k].numpy(), want_sd[k].numpy(), rtol=0,
@@ -230,6 +248,10 @@ def compare_step(p, at_step):
     grads_j = {k: new_j_sd[k] - old_j[k] for k in new_j_sd}
     grads = {k: after[k] - before[k] for k in after}
     _assert_trees_close(grads, grads_j, TREES, "gradient")
+    for k in new_j_sd:  # codebooks after their EMA update
+        if ".quantize_blocks." in k:
+            np.testing.assert_allclose(after[k].numpy(), new_j_sd[k].numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=k)
     # EMA copies after the step (EMA every step, beta 0.995) take 0.005 of
     # the live weights, whose updates agree to the gradient tolerance
     for ema, live in (("SE", "S"), ("GE", "G")):
@@ -404,9 +426,15 @@ def test_cli_trains_at_tiny_config_on_cpu(tmp_path, capsys):
     assert (tmp_path / "m" / "c" / "model_0.pt").exists()
     cfg = json.loads((tmp_path / "m" / "c" / ".config.json").read_text())
     assert cfg["image_size"] == 16 and cfg["latent_dim"] == 514
-    with pytest.raises(NotImplementedError, match="cl_reg"):
-        cli.main(["--dataset-name", "synthetic", "--device", "cpu", "--cl-reg", "True",
-                  "--image-size", "16", "--network-capacity", "4",
-                  "--models-dir", str(tmp_path / "m2"), "--results-dir", str(tmp_path / "r2")])
+    # the contrastive regulariser trains and logs its loss
+    cli.main(["--dataset-name", "synthetic", "--device", "cpu", "--cl-reg", "True",
+              "--image-size", "16", "--network-capacity", "4", "--batch-size", "2",
+              "--gradient-accumulate-every", "2", "--num-train-steps", "1",
+              "--save-every", "1000", "--evaluate-every", "1000", "--num-image-tiles", "2",
+              "--classifier-name", "mobilenet", "--aug-prob", "0.0", "--name", "c2",
+              "--models-dir", str(tmp_path / "m2"), "--results-dir", str(tmp_path / "r2")])
+    header, row = (tmp_path / "r2" / "c2" / "metrics.csv").read_text().splitlines()[:2]
+    cr = float(row.split(",")[header.split(",").index("cr_loss")])
+    assert math.isfinite(cr) and cr > 0
     with pytest.raises(SystemExit):
         cli.main(["--no-such-flag", "1"])

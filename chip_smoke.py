@@ -53,6 +53,20 @@ Phases, in order; any failure exits non-zero:
    One step of that configuration at batch 2 x 2 on the card against the
    CPU (held as in phase 6), and one forward of the
    ``PhillipEncoder64`` debug encoder on the card.
+8. Evaluation, float32 with TF32 off, the InceptionV3 weights the port's
+   seeded init saved as a torchvision-layout file and read through
+   ``STYLEX_TPU_INCEPTION``: (a) pool3 features of 4 generated images,
+   card against CPU (1e-3 x max|f|), and images/s at batch 64; (b) on
+   phase 3's float32 model and records (effects rescaled so that the
+   filter probes D), the filtered greedy search, the counterfactual images
+   for k = 1..3 card against CPU (1e-4), and ``fid_topk`` with k = 3
+   (finite FIDs, ``fid_results.csv``; ``frechet_distance`` timed apart),
+   launching both kernels; (c) ``Trainer.train()`` at the CLI defaults
+   with FID every 2 steps over 256 images for 3 steps (one
+   ``fid_scores.txt`` line, after step 2), a second FID from the cached
+   real statistics, an 8-frame interpolation GIF; (d) ``replay_results``
+   on phase 3's records with (c)'s checkpoint and one user study at
+   512-pixel panels.
 
 Phase 2 also holds the blur fused with 2x decimation, which no path runs,
 at the D/E shapes of training. The script prints a ``kernels`` JSON line
@@ -430,7 +444,7 @@ def main_path_phase(card: str):
         raise AssertionError(f"rank_styles returned {ranked}")
     log(f"  ranked (direction, sindex): bf16 resume {ranked}, "
         f"f32 flat {rank_styles(f32)[0]}")
-    return out, checks, ranked
+    return out, checks, ranked, (nets[torch.float32], r32)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -862,6 +876,267 @@ def options_phase(card: str):
     return res
 
 
+# ------------------------------------------------------------------ phase 8
+
+
+def _sync_s(fn):
+    """Host seconds of ``fn()`` between two device synchronisations, and
+    its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+class _Timed:
+    """Replaces ``module.name`` by a wrapper that adds each call's host
+    seconds (device synchronised) to ``seconds``; restored on exit."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.seconds = module, name, []
+
+    def __enter__(self):
+        self.inner = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            t, out = _sync_s(lambda: self.inner(*args, **kwargs))
+            self.seconds.append(t)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def evaluation_phase(card: str, f32_run):
+    """Phase 8: InceptionV3 features, the counterfactual protocol, training
+    with FID and the evaluation CLIs, float32 with TF32 off. The Inception
+    weights are the port's seeded init, saved as a torchvision-layout state
+    dict and read through ``STYLEX_TPU_INCEPTION``; (c) unsets it, so the
+    trainer takes its default extractor, the seeded AlexNet."""
+    import os
+
+    from stylex_tpu_torch.device import set_float32_precision
+    from stylex_tpu_torch.models.inception import ENV, build_inception
+
+    set_float32_precision()
+    base = Path(tempfile.mkdtemp(prefix="stylex_eval_", dir=OUT_DIR))
+    weights = base / "inception_seeded.pt"
+    torch.save(build_inception(seed=0, device="cpu").state_dict(), weights)
+    saved = os.environ.get(ENV)
+    os.environ[ENV] = str(weights)
+    out = {}
+    try:
+        out["inception"] = _eval_inception(card, f32_run)
+        out["counterfactual"] = _eval_counterfactual(card, f32_run, base)
+        del os.environ[ENV]
+        out["training"] = _eval_training(card, base)
+        out["clis"] = _eval_clis(card, base, f32_run[1])
+    finally:
+        os.environ.pop(ENV, None)
+        if saved is not None:
+            os.environ[ENV] = saved
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def _eval_inception(card: str, f32_run):
+    """(a) pool3 features of 4 generated 64px images, card against CPU;
+    images/s of the feature function at batch 64."""
+    from stylex_tpu_torch.eval.counterfactual import create_counterfactual_dataset
+    from stylex_tpu_torch.models.inception import default_pool3_features
+
+    (model, _), records = f32_run
+    images = create_counterfactual_dataset(model, None, records, [], 0)
+    x = torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2)))
+    card_fn, cpu_fn = default_pool3_features("cuda"), default_pool3_features("cpu")
+    got, want = card_fn(x).cpu().numpy(), cpu_fn(x).numpy()
+    err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    log(f"  (a) Inception pool3 of {tuple(x.shape)} generated images: card vs CPU max abs err "
+        f"{err:.4g} (tol 1e-3 x max|f| = {1e-3 * scale:.4g}) [{card}]")
+    if got.shape != (4, 2048) or not np.isfinite(got).all() or err > 1e-3 * scale:
+        raise AssertionError(f"Inception features: shape {got.shape}, error {err} > {1e-3 * scale}")
+    batch = x.repeat(16, 1, 1, 1).cuda()
+    ms = time_ms(card_fn, batch, reps=10, loops=3)
+    log(f"  (a) pool3_features_fn at batch 64 (64px -> 299): {ms:.3f} ms per batch = "
+        f"{64 / ms * 1e3:.1f} images/s [{card}]")
+    return dict(max_abs_err=err, max_abs_f=scale, batch64_ms=ms, images_per_s=64 / ms * 1e3)
+
+
+def _eval_counterfactual(card: str, f32_run, base: Path):
+    """(b) The filtered greedy search (D on), the counterfactual images for
+    k = 1..3 (card against CPU) and ``fid_topk`` with k = 3, with the kernel
+    launches of the whole step counted from 0."""
+    import csv
+
+    from stylex_tpu_torch.eval import counterfactual as cf
+    from stylex_tpu_torch.models import build_stylex
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+
+    (model, clf), r32 = f32_run
+    # Random weights move MobileNetV2's logits by ~1e-5, where a trained
+    # classifier's effects are O(1); the filter probes D only for images
+    # whose effect exceeds 0.2. Rescaled so that the first candidate's mean
+    # effect is 1, the records make the search probe D as it would there.
+    first = np.maximum(0.0, r32.style_change[..., 0]).mean(axis=0).max()
+    records = dataclasses.replace(r32, style_change=r32.style_change / first)
+    reset_launches()
+    t_search, (picks, rejected) = _sync_s(lambda: cf.find_significant_styles_filtered(
+        records, 3, 0, model=model, classifier_fn=clf.classify_images))
+    log(f"  (b) find_significant_styles_filtered (D on): picks {picks}, rejected {rejected}, "
+        f"{t_search:.3f} s [{card}]")
+    if not picks:
+        raise AssertionError("the filtered search picked nothing")
+
+    cpu_model = build_stylex(model.cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cf_errs, cf_s = [], []
+    for k in (1, 2, 3):
+        t, got = _sync_s(lambda: cf.create_counterfactual_dataset(model, None, records, picks, k))
+        want = cf.create_counterfactual_dataset(cpu_model, None, records, picks, k)
+        cf_errs.append(float(np.abs(got - want).max()))
+        cf_s.append(t)
+        size = model.cfg.image_size
+        if got.shape != (N_IMAGES, size, size, 3) or cf_errs[-1] > 1e-4:
+            raise AssertionError(f"counterfactuals k={k}: shape {got.shape}, card vs CPU "
+                                 f"{cf_errs[-1]} > 1e-4")
+    log(f"  (b) create_counterfactual_dataset k=1..3: card vs CPU max abs err "
+        + ", ".join(f"{e:.3g}" for e in cf_errs) + " (tol 1e-4), card "
+        + ", ".join(f"{t:.4f}" for t in cf_s) + f" s [{card}]")
+
+    csv_path = base / "fid_results.csv"
+    with _Timed(cf, "frechet_distance") as fd, _Timed(cf, "compute_feature_stats") as st:
+        t_fid, fids = _sync_s(lambda: cf.fid_topk(model, None, records, picks, k=3,
+                                                  csv_path=str(csv_path)))
+    launches = dict(LAUNCHES)
+    rows = list(csv.reader(open(csv_path)))
+    gen_s = t_fid - sum(fd.seconds) - sum(st.seconds)
+    log(f"  (b) fid_topk k=3 (Inception): FIDs {fids}, {t_fid:.3f} s = frechet_distance "
+        f"{sum(fd.seconds):.3f} s over {len(fd.seconds)} calls (host sqrtm of 2048x2048; "
+        f"{', '.join(f'{t:.3f}' for t in fd.seconds)}) + feature stats {sum(st.seconds):.3f} s "
+        f"+ generation {gen_s:.3f} s [{card}]")
+    log(f"  (b) launches over the step: {launches} [{card}]")
+    if len(fids) != 4 or not all(np.isfinite(fids)):
+        raise AssertionError(f"fid_topk: {fids}")
+    if [r[0] for r in rows] != ["k", "generated", "1", "2", "3"]:
+        raise AssertionError(f"fid_results.csv rows {rows}")
+    for name in ON_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"the counterfactual protocol did not launch kernel {name}")
+    return dict(picks=picks, rejected=rejected, effect_rescale=float(1.0 / first),
+                search_s=t_search, counterfactual_max_abs_err=cf_errs, counterfactual_s=cf_s,
+                fids=fids, fid_topk_s=t_fid, frechet_s=fd.seconds, feature_stats_s=st.seconds,
+                generation_s=gen_s, launches=launches)
+
+
+def _eval_training(card: str, base: Path):
+    """(c) ``Trainer.train()`` at the CLI defaults on the synthetic set with
+    FID every 2 steps over 256 images: steps 0, 1, 2 (never at step 0, so
+    one FID, after step 2); a second FID that must read the cached real
+    statistics and no real image; an 8-frame interpolation GIF. Saves the
+    checkpoint that (d) reads."""
+    from PIL import Image
+
+    from stylex_tpu_torch.config import TrainConfig
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+    from stylex_tpu_torch.train.trainer import Trainer
+
+    class NoRealImages:
+        def __next__(self):
+            raise AssertionError("a cached FID read a real image")
+
+    tc = TrainConfig(calculate_fid_every=2, calculate_fid_num_images=256, save_every=1000,
+                     evaluate_every=1000, num_image_tiles=4)
+    trainer = Trainer(name="smoke-eval", base_dir=str(base), train_cfg=tc,
+                      classifier_name="resnet", seed=0)
+    try:
+        trainer.set_data_src(dataset_name="synthetic")
+        reset_launches()
+        step_ms = []
+        for _ in range(3):
+            ms, metrics = _cuda_ms(trainer.train)
+            step_ms.append(ms)
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"training with FID: non-finite metrics {metrics}")
+        launches = dict(LAUNCHES)
+        lines = (base / "results" / "smoke-eval" / "fid_scores.txt").read_text().splitlines()
+        log(f"  (c) 3 steps at the CLI defaults with FID every 2 over 256 images: "
+            f"{', '.join(f'{m:.1f}' for m in step_ms)} ms (step 2 with the FID); "
+            f"fid_scores.txt {lines}; launches {launches} [{card}]")
+        if len(lines) != 1 or lines[0].split(",")[0] != "2" or not np.isfinite(
+                float(lines[0].split(",")[1])):
+            raise AssertionError(f"fid_scores.txt: {lines}")
+        real, trainer.loader.sample_loader = trainer.loader.sample_loader, NoRealImages()
+        try:
+            t_cached, fid2 = _sync_s(lambda: trainer.calculate_fid(256 // tc.batch_size))
+        finally:
+            trainer.loader.sample_loader = real
+        t_gif, gif = _sync_s(lambda: trainer.generate_interpolation(num_steps=8))
+        frames = Image.open(gif).n_frames
+        log(f"  (c) second calculate_fid from real_stats.npz: {fid2:.6g} in {t_cached:.3f} s; "
+            f"interpolation GIF {frames} frames in {t_gif:.3f} s [{card}]")
+        if not np.isfinite(fid2) or frames != 8:
+            raise AssertionError(f"cached FID {fid2}, GIF frames {frames}")
+        for name in ON_PATH:
+            if launches[name] <= 0:
+                raise AssertionError(f"training with FID did not launch kernel {name}")
+        trainer.save(0)
+    finally:
+        trainer.close()
+    return dict(step_ms=step_ms, fid_line=lines[0], cached_fid=fid2, cached_fid_s=t_cached,
+                gif_frames=frames, gif_s=t_gif, launches=launches)
+
+
+def _eval_clis(card: str, base: Path, records):
+    """(d) ``replay_results`` on phase 3's records with (c)'s checkpoint,
+    and one user study at the default 512-pixel panels."""
+    from PIL import Image
+
+    from stylex_tpu_torch import replay_results, user_study
+    from stylex_tpu_torch.attfind import records_file_name, save_records
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+
+    h5 = base / records_file_name()  # .npz where h5py is not installed
+    save_records(records, str(h5))
+    model_args = ["--name", "smoke-eval", "--base-dir", str(base), "--classifier-name", "resnet"]
+    reset_launches()
+    replay_out = base / "replay"
+    t_replay, _ = _sync_s(lambda: replay_results.main(
+        ["--records", str(h5), "--out", str(replay_out), "--visualize-top", "2",
+         "--max-images", "4", *model_args]))
+    top = json.loads((replay_out / "top_styles.json").read_text())
+    panels = sorted(p.name for p in replay_out.glob("style_*.png"))
+    study_out = base / "user_study"
+    t_study, _ = _sync_s(lambda: user_study.main(
+        ["--records", str(h5), "--out", str(study_out), "--num-studies", "1", *model_args]))
+    launches = dict(LAUNCHES)
+    gifs = sorted(study_out.glob("class_study_*.gif"))
+    gif = Image.open(gifs[0]) if gifs else None
+    # the base and counterfactual frames, 750 ms each; PIL stores equal
+    # frames as one frame of their summed duration
+    frames_ms = []
+    for i in range(gif.n_frames if gif else 0):
+        gif.seek(i)
+        frames_ms.append(gif.info["duration"])
+    key = (study_out / "info_of_images.txt").read_text()
+    log(f"  (d) replay_results: ranked {top['ranked']}, panels {panels}, {t_replay:.3f} s; "
+        f"user study: {[g.name for g in gifs]} {gif.size if gif else None}, frame durations "
+        f"{frames_ms} ms, {t_study:.3f} s; launches {launches} [{card}]")
+    want = {f"style_{d}_{s}_by_distance.png" for d, s in top["ranked"][:2]}
+    if not want or not want <= set(panels):
+        raise AssertionError(f"replay panels {panels}, expected {sorted(want)}")
+    if len(gifs) != 1 or sum(frames_ms) != 1500 or gif.size != (1030, 1030) or not key.startswith(
+            "Odd transformation in "):
+        raise AssertionError(f"user study: {gifs}, {gif and gif.size}, {frames_ms}, {key[:40]!r}")
+    if launches["upsample2x_bilinear"] <= 0:
+        raise AssertionError("the evaluation CLIs did not launch the upsample kernel")
+    return dict(replay_s=t_replay, ranked=top["ranked"], panels=panels, user_study_s=t_study,
+                user_study_frames_ms=frames_ms, launches=launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--kernels-only", action="store_true",
@@ -903,7 +1178,7 @@ def main(argv=None) -> int:
         return 0
 
     log("[phase 3] main path: AttFind extraction, 64px, bf16, full width")
-    main_out, checks, ranked = main_path_phase(card)
+    main_out, checks, ranked, f32_run = main_path_phase(card)
 
     log("[phase 4] card against CPU, float32, TF32 off")
     cpu_errs = card_vs_cpu_phase()
@@ -920,6 +1195,10 @@ def main(argv=None) -> int:
         "cl_reg, the scan step")
     options_out = options_phase(card)
 
+    log("[phase 8] evaluation: Inception, the counterfactual protocol, training with FID, "
+        "the replay and user-study CLIs; float32, TF32 off")
+    eval_out = evaluation_phase(card, f32_run)
+
     sources = {"upsample2x_bilinear": "stylex_tpu_torch/csrc/upsample2x_bilinear.cu",
                "blur3": "stylex_tpu_torch/csrc/blur3.cu",
                "blur3_downsample2x": "stylex_tpu_torch/csrc/blur3.cu"}
@@ -934,6 +1213,9 @@ def main(argv=None) -> int:
              launches_train_literal=train_out["float32_literal"]["launches"][name],
              launches_train_bf16=train_out["bfloat16"]["launches"][name],
              launches_options=options_out["launches"][name],
+             launches_eval=eval_out["counterfactual"]["launches"][name],
+             launches_eval_train=eval_out["training"]["launches"][name],
+             launches_eval_clis=eval_out["clis"]["launches"][name],
              max_abs_err=s["max_abs_err"], ms=s["ms"], device_ms=s["device_ms"],
              plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
              bound_by="+".join(sorted(s["bound_by"])), library_ms=s["library_ms"],
@@ -947,7 +1229,7 @@ def main(argv=None) -> int:
                    for k, v in main_out.items()},
         main_path_checks=checks, ranked=ranked,
         card_vs_cpu=cpu_errs, training=train_out, conv_precision=conv_rows,
-        train_card_vs_cpu=train_cpu_errs, options=options_out,
+        train_card_vs_cpu=train_cpu_errs, options=options_out, evaluation=eval_out,
         seconds=time.perf_counter() - t_start,
     )
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
@@ -956,7 +1238,9 @@ def main(argv=None) -> int:
         f"shapes of one 32-image training phase); host_us and host_us_grad the median host cost "
         f"per wrapper call over every phase-2 shape, without and with autograd; launches from "
         f"the block-resume run, launches_train from the 6 float32 training steps on the fused "
-        f"graph (launches_train_literal on the literal one), launches_options from phase 7")
+        f"graph (launches_train_literal on the literal one), launches_options from phase 7, "
+        f"launches_eval from phase 8's counterfactual step (launches_eval_train from its training "
+        f"with FID, launches_eval_clis from its replay and user-study CLIs)")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

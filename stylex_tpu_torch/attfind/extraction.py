@@ -25,7 +25,10 @@ does (it measured faster there for forward-only sweeps). An explicit
 ``STYLEX_TPU_NO_FUSED_UPCONV`` still wins.
 
 The records keep the JAX package's layout (NHWC images, the same shapes)
-and the reference's ``style_change_records.hdf5`` schema.
+and the reference's ``style_change_records.hdf5`` schema. Where h5py is
+not installed they go to ``.npz`` with the same datasets:
+:func:`save_records` and :func:`load_records` choose by the file's suffix,
+:func:`records_file_name` by whether h5py imports.
 """
 
 from __future__ import annotations
@@ -49,6 +52,9 @@ __all__ = [
     "find_discriminator_threshold",
     "save_records_hdf5",
     "load_records_hdf5",
+    "save_records",
+    "load_records",
+    "records_file_name",
 ]
 
 Classify = Callable[[torch.Tensor], torch.Tensor]
@@ -306,23 +312,44 @@ def find_discriminator_threshold(model: StylEx, classifier_fn: Classify, images:
 # ---------------------------------------------------------------- records IO
 
 
+def _datasets(records: AttFindRecords) -> Dict[str, np.ndarray]:
+    """The reference schema's datasets: float32, minima and maxima (1, C),
+    images NCHW."""
+    return {
+        "style_change": records.style_change.astype("f4"),
+        "latents": records.latents.astype("f4"),
+        "base_prob": records.base_prob.astype("f4"),
+        "minima": records.minima[None].astype("f4"),
+        "maxima": records.maxima[None].astype("f4"),
+        "style_coordinates": records.style_coordinates.astype("f4"),
+        "original_images": records.original_images.transpose(0, 3, 1, 2).astype("f4"),
+        "noise": records.noise.astype("f4"),
+        "discriminator": records.discriminator.astype("f4"),
+    }
+
+
+def _from_datasets(f) -> AttFindRecords:
+    return AttFindRecords(
+        style_change=np.array(f["style_change"]),
+        latents=np.array(f["latents"]),
+        base_prob=np.array(f["base_prob"]),
+        minima=np.array(f["minima"])[0],
+        maxima=np.array(f["maxima"])[0],
+        style_coordinates=np.array(f["style_coordinates"]),
+        original_images=np.array(f["original_images"]).transpose(0, 2, 3, 1),
+        noise=np.array(f["noise"]),
+        discriminator=np.array(f["discriminator"]),
+    )
+
+
 def save_records_hdf5(records: AttFindRecords, path: str) -> str:
     """Write ``style_change_records.hdf5`` with the reference's dataset
     names and shapes. Images are stored NCHW to match."""
     import h5py
 
     with h5py.File(path, "w") as f:
-        f.create_dataset("style_change", data=records.style_change.astype("f4"))
-        f.create_dataset("latents", data=records.latents.astype("f4"))
-        f.create_dataset("base_prob", data=records.base_prob.astype("f4"))
-        f.create_dataset("minima", data=records.minima[None].astype("f4"))
-        f.create_dataset("maxima", data=records.maxima[None].astype("f4"))
-        f.create_dataset("style_coordinates", data=records.style_coordinates.astype("f4"))
-        f.create_dataset(
-            "original_images", data=records.original_images.transpose(0, 3, 1, 2).astype("f4")
-        )
-        f.create_dataset("noise", data=records.noise.astype("f4"))
-        f.create_dataset("discriminator", data=records.discriminator.astype("f4"))
+        for name, data in _datasets(records).items():
+            f.create_dataset(name, data=data)
     return path
 
 
@@ -330,14 +357,32 @@ def load_records_hdf5(path: str) -> AttFindRecords:
     import h5py
 
     with h5py.File(path, "r") as f:
-        return AttFindRecords(
-            style_change=np.array(f["style_change"]),
-            latents=np.array(f["latents"]),
-            base_prob=np.array(f["base_prob"]),
-            minima=np.array(f["minima"])[0],
-            maxima=np.array(f["maxima"])[0],
-            style_coordinates=np.array(f["style_coordinates"]),
-            original_images=np.array(f["original_images"]).transpose(0, 2, 3, 1),
-            noise=np.array(f["noise"]),
-            discriminator=np.array(f["discriminator"]),
-        )
+        return _from_datasets(f)
+
+
+def save_records(records: AttFindRecords, path: str) -> str:
+    """The records to ``path``: a ``.npz`` of the reference schema's
+    datasets, or else the reference's hdf5."""
+    if str(path).endswith(".npz"):
+        np.savez(path, **_datasets(records))
+        return path
+    return save_records_hdf5(records, path)
+
+
+def load_records(path: str) -> AttFindRecords:
+    """Records from a ``.npz`` of :func:`save_records` or an hdf5 file of
+    the reference schema."""
+    if str(path).endswith(".npz"):
+        with np.load(path) as f:
+            return _from_datasets(f)
+    return load_records_hdf5(path)
+
+
+def records_file_name() -> str:
+    """``style_change_records.hdf5``, or ``.npz`` where h5py is not
+    installed."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return "style_change_records.npz"
+    return "style_change_records.hdf5"

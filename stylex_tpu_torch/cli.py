@@ -11,10 +11,15 @@ option of that CLI is taken: ``--attn-layers [1,2]``, ``--no-const``,
 ``--fq-layers [2] --fq-dict-size 256``, ``--encoder-class
 PhillipEncoder64``, ``--remat``, ``--cl-reg``, ``--fused-microbatches
 False`` (the scan step), beside the losses, augmentation and top-k
-options. A flag of that CLI that the port does not support yet (FID,
-interpolation, MNIST, multi-device, ``--steps-per-dispatch``,
-``--async-save``...) is refused. A step whose losses go non-finite reloads
-the latest checkpoint and is retried, 3 times at most.
+options; so are FID during training (``--calculate-fid-every N
+--calculate-fid-num-images 12800 --clear-fid-cache``), the MNIST
+one-vs-all set (``--dataset-name MNIST --data <folder of IDX files>
+--image-size 32``) and the interpolation mode
+(``--generate-interpolation --interpolation-num-steps 100
+--save-frames``). A flag of that CLI that the port does not support yet
+(multi-device, ``--steps-per-dispatch``, ``--async-save``...) is refused.
+A step whose losses go non-finite reloads the latest checkpoint and is
+retried, 3 times at most.
 """
 
 from __future__ import annotations
@@ -60,6 +65,9 @@ def train_from_folder(
     evaluate_every: int = 50,
     generate: bool = False,
     num_generate: int = 1,
+    generate_interpolation: bool = False,
+    interpolation_num_steps: int = 100,
+    save_frames: bool = False,
     num_image_tiles: int = 8,
     trunc_psi: float = 0.75,
     mixed_prob: float = 0.9,
@@ -78,6 +86,9 @@ def train_from_folder(
     generator_top_k_frac: float = 0.5,
     dual_contrast_loss: bool = False,
     dataset_aug_prob: float = 0.0,
+    calculate_fid_every: Optional[int] = None,
+    calculate_fid_num_images: int = 12800,
+    clear_fid_cache: bool = False,
     seed: int = 42,
     kl_scaling: float = 1.0,
     rec_scaling: float = 1.0,
@@ -95,7 +106,8 @@ def train_from_folder(
     fused_microbatches: bool = True,
     device: Optional[str] = None,
 ) -> None:
-    """Train (or, with ``generate``, sample grids from) a StylEx model."""
+    """Train a StylEx model, or, with ``generate``, sample grids from it or,
+    with ``generate_interpolation``, write an interpolation GIF."""
     from stylex_tpu_torch.train.trainer import NanException, Trainer
 
     np.random.seed(seed)
@@ -118,7 +130,9 @@ def train_from_folder(
         generator_top_k_gamma=generator_top_k_gamma,
         generator_top_k_frac=generator_top_k_frac, aug_prob=aug_prob, num_workers=num_workers,
         aug_types=_as_tuple(aug_types), dataset_aug_prob=dataset_aug_prob, no_pl_reg=no_pl_reg,
-        save_every=save_every, evaluate_every=evaluate_every, trunc_psi=trunc_psi,
+        save_every=save_every, evaluate_every=evaluate_every,
+        calculate_fid_every=calculate_fid_every,
+        calculate_fid_num_images=calculate_fid_num_images, trunc_psi=trunc_psi,
         num_image_tiles=num_image_tiles,
         compute_dtype="bfloat16" if (bf16 or fp16) else "float32",
         fused_microbatches=fused_microbatches,
@@ -126,13 +140,19 @@ def train_from_folder(
     trainer = Trainer(name=name, results_dir=results_dir, models_dir=models_dir,
                       model_cfg=model_cfg, train_cfg=train_cfg, classifier_name=classifier_name,
                       classifier_path=classifier_path, lpips_path=lpips_path, seed=seed,
-                      device=device)
+                      clear_fid_cache=clear_fid_cache, device=device)
     try:
         if generate:
             trainer.load(load_from)
             for i in range(num_generate):
                 trainer.evaluate(num=i)
             print(f"sample images generated under {trainer.results_dir / name}")
+            return
+        if generate_interpolation:
+            trainer.load(load_from)
+            out = trainer.generate_interpolation(num=0, num_steps=interpolation_num_steps,
+                                                 save_frames=save_frames)
+            print(f"interpolation generated at {out}")
             return
         if new:
             trainer.clear()

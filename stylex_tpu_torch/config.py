@@ -108,6 +108,8 @@ class TrainConfig:
     ema_reset_until: int = 25_000
     save_every: int = 500
     evaluate_every: int = 50
+    calculate_fid_every: Optional[int] = None  # steps between FID evaluations; None: never
+    calculate_fid_num_images: int = 12800
     trunc_psi: float = 0.75
     num_image_tiles: int = 8
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16' | 'float64' (a CPU witness)

@@ -5,7 +5,12 @@ from stylex_tpu_torch.data.loader import (
     as_float01,
     balanced_class_weights,
 )
-from stylex_tpu_torch.data.mnist import SyntheticImageDataset
+from stylex_tpu_torch.data.mnist import (
+    MNIST1vA,
+    SyntheticImageDataset,
+    load_idx_images,
+    load_idx_labels,
+)
 
 __all__ = [
     "FolderDataset",
@@ -13,5 +18,8 @@ __all__ = [
     "StepBatchLoader",
     "as_float01",
     "balanced_class_weights",
+    "MNIST1vA",
     "SyntheticImageDataset",
+    "load_idx_images",
+    "load_idx_labels",
 ]

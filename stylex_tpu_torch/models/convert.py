@@ -18,6 +18,8 @@
 * :func:`lpips_params_from_jax` does it for the LPIPS tree, and
   :func:`train_state_from_jax` for a whole train state: parameters, EMA
   copies, the optax Adam moments and count, ``step`` and ``pl_mean``.
+* :func:`inception_state_dict_from_jax` does it for the FID InceptionV3
+  variables, into torchvision's keys.
 * :func:`load_reference_checkpoint` reads a reference ``.pt`` file.
 
 No JAX is needed: the trees are nested mappings of numpy arrays.
@@ -40,6 +42,7 @@ __all__ = [
     "lpips_params_from_jax",
     "train_state_from_jax",
     "classifier_state_dict_from_jax",
+    "inception_state_dict_from_jax",
     "load_reference_checkpoint",
 ]
 
@@ -304,6 +307,30 @@ def classifier_state_dict_from_jax(variables: Mapping[str, Any], kind: str) -> S
         _linear(sd, "classifier.1", p["classifier"])
     else:
         raise ValueError(f"unknown classifier kind {kind!r}")
+    return sd
+
+
+def inception_state_dict_from_jax(variables: Mapping[str, Any]) -> StateDict:
+    """flax ``{'params', 'batch_stats'}`` of the JAX package's
+    ``InceptionV3FID`` (numpy leaves) -> a torchvision-layout state dict:
+    ``<path>.conv.kernel`` HWIO -> ``<path>.conv.weight`` OIHW,
+    ``<path>.bn.{scale, bias}`` -> ``.bn.{weight, bias}``, the statistics
+    ``<path>.bn.{mean, var}`` -> ``.bn.{running_mean, running_var}``."""
+    sd: StateDict = {}
+
+    def walk(tree: Mapping, path: str, names: Mapping[str, str]) -> None:
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{path}{k}.", names)
+            elif k == "kernel":
+                sd[f"{path}weight"] = _t(np.asarray(v).transpose(3, 2, 0, 1))
+            else:
+                sd[f"{path}{names[k]}"] = _t(v)
+
+    walk(variables["params"], "", {"scale": "weight", "bias": "bias"})
+    walk(variables["batch_stats"], "", {"mean": "running_mean", "var": "running_var"})
+    for key in [k for k in sd if k.endswith(".bn.running_var")]:
+        sd[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return sd
 
 

@@ -9,8 +9,13 @@
 Loads a reference-layout StylEx checkpoint (``{'StylEx': state_dict}``) and
 a torchvision-layout classifier state_dict, runs the StyleSpace sweep on the
 GPU (``--device cpu`` runs it on the host), writes
-``style_change_records.hdf5`` (the reference schema) and ``top_styles.json``
+``style_change_records.hdf5`` (the reference schema; ``.npz`` with the
+same datasets where h5py is not installed) and ``top_styles.json``
 to ``--results-folder``, and prints the ranked (direction, sindex) pairs.
+With ``--visualize-top N`` it then renders the counterfactual panel of each
+of the top N styles (``visualize_style``: images whose effect exceeds 0.1,
+at least one) and saves each that passes as ``style_<direction>_<sindex>.png``
+beside the records, as the JAX package's CLI does.
 """
 
 from __future__ import annotations
@@ -46,13 +51,22 @@ def main(argv=None) -> None:
                    help="sweep compute dtype; records are float32 either way")
     p.add_argument("--device", default=None, help="default: the GPU")
     p.add_argument("--results-folder", default="./attfind_results")
+    p.add_argument("--visualize-top", type=int, default=0,
+                   help="render counterfactual panels for the top-N styles")
     p.add_argument("--seed", type=int, default=42)
     args = p.parse_args(argv)
     if args.use_discriminator and args.discriminator_threshold is None:
         p.error("--use-discriminator needs --discriminator-threshold "
                 "(the reference uses -0.5 for the plant model)")
 
-    from stylex_tpu_torch.attfind import attfind_extraction, rank_styles, save_records_hdf5
+    from stylex_tpu_torch.attfind import (
+        attfind_extraction,
+        rank_styles,
+        records_file_name,
+        save_records,
+        visualize_style,
+        warn_visualize_top,
+    )
     from stylex_tpu_torch.config import ModelConfig
     from stylex_tpu_torch.data import FolderDataset, SyntheticImageDataset
     from stylex_tpu_torch.device import resolve_device, resolve_dtype
@@ -99,7 +113,10 @@ def main(argv=None) -> None:
 
     out = Path(args.results_folder)
     out.mkdir(parents=True, exist_ok=True)
-    save_records_hdf5(records, str(out / "style_change_records.hdf5"))
+    records_path = out / records_file_name()
+    if records_path.suffix == ".npz":
+        print(f"h5py is not installed: records written to {records_path} (the hdf5 datasets)")
+    save_records(records, str(records_path))
     ranked, per_class = rank_styles(records, num_classes=cfg.num_classes,
                                     num_indices=args.num_indices,
                                     effect_threshold=args.effect_threshold)
@@ -109,6 +126,15 @@ def main(argv=None) -> None:
     (out / "top_styles.json").write_text(json.dumps(
         {"ranked": ranked, "per_class": {str(k): v for k, v in per_class.items()}}
     ))
+
+    warn_visualize_top(args.visualize_top, len(ranked), args.num_indices)
+    for direction, sindex in ranked[: args.visualize_top]:
+        panel = visualize_style(model, clf.classify_images, records, sindex, direction,
+                                shift_size=args.shift_size, effect_threshold=0.1, min_images=1)
+        if panel is not None:
+            from PIL import Image
+
+            Image.fromarray(panel).save(out / f"style_{direction}_{sindex}.png")
 
 
 if __name__ == "__main__":

@@ -1,17 +1,23 @@
 """Trainer: the host-side training loop around the train step.
 
-It owns model and optimizer construction, the data source (an image folder
-or the synthetic set, with the reference's automatic augmentation
-probability for small datasets), the step's random draws (a
-``torch.Generator`` on the device, seeded), checkpoints with the model's
-``.config.json``, the save and evaluate cadence, evaluation grids, and the
-NaN fault path: non-finite losses reload the latest checkpoint and raise
+It owns model and optimizer construction, the data source (an image folder,
+MNIST one-vs-all with class-rebalanced sampling, or the synthetic set, with
+the reference's automatic augmentation probability for small datasets),
+the step's random draws (a ``torch.Generator`` on the device, seeded),
+checkpoints with the model's ``.config.json``, the save, evaluate and FID
+cadence, evaluation grids, slerp interpolation GIFs, and the NaN fault
+path: non-finite losses reload the latest checkpoint and raise
 :class:`NanException`, which the CLI retries.
+
+FID (:meth:`Trainer.calculate_fid`) compares real batches from the loader
+with EMA samples, by :func:`stylex_tpu_torch.eval.fid.resolve_feature_fn`'s
+extractor; the real side's statistics are cached under
+``fid/<name>/real_stats.npz``, keyed by the extractor's tag and the sample
+count. :class:`ModelLoader` wraps a checkpoint for inference.
 
 Runs on the GPU unless ``device='cpu'`` is given; without a GPU it raises.
 A float32 trainer turns TF32 off (:func:`set_float32_precision`), as the
 float32 AttFind sweep does.
-FID, the MNIST one-vs-all set and interpolation GIFs are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,8 +32,16 @@ import torch
 
 from stylex_tpu_torch import __version__
 from stylex_tpu_torch.config import Arch, ModelConfig, TrainConfig
-from stylex_tpu_torch.data import FolderDataset, StepBatchLoader, SyntheticImageDataset
+from stylex_tpu_torch.data import (
+    FolderDataset,
+    MNIST1vA,
+    StepBatchLoader,
+    SyntheticImageDataset,
+    as_float01,
+    balanced_class_weights,
+)
 from stylex_tpu_torch.device import resolve_device, set_float32_precision
+from stylex_tpu_torch.eval.fid import compute_feature_stats, frechet_distance, resolve_feature_fn
 from stylex_tpu_torch.models.classifiers import build_classifier
 from stylex_tpu_torch.models.lpips import init_lpips_params, load_lpips_params
 from stylex_tpu_torch.models.stylex import build_stylex, make_w
@@ -36,6 +50,7 @@ from stylex_tpu_torch.ops.latents import (
     image_noise,
     latent_noise,
     mixed_w_styles,
+    slerp,
     truncate_w,
 )
 from stylex_tpu_torch.train.state import TrainState, create_train_state
@@ -46,10 +61,10 @@ from stylex_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from stylex_tpu_torch.utils.image import save_image_grid
+from stylex_tpu_torch.utils.image import make_grid, save_image_grid, to_uint8
 from stylex_tpu_torch.utils.logging import MetricLogger
 
-__all__ = ["Trainer", "NanException"]
+__all__ = ["Trainer", "NanException", "ModelLoader"]
 
 
 class NanException(Exception):
@@ -62,12 +77,13 @@ class Trainer:
                  model_cfg: Optional[ModelConfig] = None,
                  train_cfg: Optional[TrainConfig] = None, classifier_name: str = "resnet",
                  classifier_path: Optional[str] = None, lpips_path: Optional[str] = None,
-                 seed: int = 42, device=None):
+                 seed: int = 42, clear_fid_cache: bool = False, device=None):
         self.device = resolve_device(device)
         self.name = name
         base = Path(base_dir)
         self.results_dir = base / results_dir
         self.models_dir = base / models_dir
+        self.fid_dir = base / "fid" / name
         self.config_path = self.models_dir / name / ".config.json"
         self.model_cfg = model_cfg or ModelConfig()
         self.train_cfg = train_cfg or TrainConfig()
@@ -90,6 +106,8 @@ class Trainer:
         self.loader: Optional[StepBatchLoader] = None
         self.dataset = None
         self.aug_prob = self.train_cfg.aug_prob
+        self.clear_fid_cache = clear_fid_cache
+        self.last_fid: Optional[float] = None
         self.logger = MetricLogger(str(self.results_dir / name / "metrics.csv"))
         self.init_folders()
 
@@ -129,7 +147,7 @@ class Trainer:
         (self.models_dir / self.name).mkdir(parents=True, exist_ok=True)
 
     def clear(self) -> None:
-        for d in (self.models_dir / self.name, self.results_dir / self.name):
+        for d in (self.models_dir / self.name, self.results_dir / self.name, self.fid_dir):
             shutil.rmtree(d, ignore_errors=True)
         self.init_folders()
 
@@ -149,7 +167,11 @@ class Trainer:
     # ------------------------------------------------------------------- data
     def set_data_src(self, folder: str = "./", dataset_name: Optional[str] = None) -> None:
         tc = self.train_cfg
-        if dataset_name == "synthetic":
+        weights = None
+        if dataset_name == "MNIST":
+            self.dataset = MNIST1vA(folder, digit=8)
+            weights = balanced_class_weights(self.dataset.targets, self.model_cfg.num_classes)
+        elif dataset_name == "synthetic":
             self.dataset = SyntheticImageDataset(512, self.model_cfg.image_size)
         elif dataset_name is None:
             self.dataset = FolderDataset(folder, self.model_cfg.image_size,
@@ -161,8 +183,8 @@ class Trainer:
         if self.loader is not None:
             self.loader.close()
         self.loader = StepBatchLoader(self.dataset, tc.batch_size, tc.gradient_accumulate_every,
-                                      seed=self.seed, need_g_real=tc.dual_contrast_loss,
-                                      **kwargs)
+                                      seed=self.seed, weights=weights,
+                                      need_g_real=tc.dual_contrast_loss, **kwargs)
         if self.aug_prob is None and len(self.dataset) < 1e5:
             self.aug_prob = min(0.5, (1e5 - len(self.dataset)) * 3e-6)
             print(f"autosetting augmentation probability to {round(self.aug_prob * 100)}%")
@@ -207,6 +229,11 @@ class Trainer:
             self.save(step // tc.save_every)
         if step % tc.evaluate_every == 0 or (step % 100 == 0 and step < 2500):
             self.evaluate(encoder_input=tc.sample_from_encoder, num=step // tc.evaluate_every)
+        if tc.calculate_fid_every is not None and step % tc.calculate_fid_every == 0 and step != 0:
+            num_batches = math.ceil(tc.calculate_fid_num_images / tc.batch_size)
+            self.last_fid = self.calculate_fid(num_batches)
+            with open(self.results_dir / self.name / "fid_scores.txt", "a") as f:
+                f.write(f"{step},{self.last_fid}\n")
         return metrics
 
     # ----------------------------------------------------------- persistence
@@ -231,12 +258,17 @@ class Trainer:
 
     # ------------------------------------------------------------ evaluation
     @torch.no_grad()
-    def truncated_w(self, w: torch.Tensor) -> torch.Tensor:
-        """The truncation trick around the live S's mean w of 2000 z."""
+    def style_mean(self) -> torch.Tensor:
+        """The live S's mean w over 2000 z, the truncation centre (the
+        reference takes the live S even when generating with the EMA
+        nets)."""
         gen = torch.Generator(device=self.device).manual_seed(0)
         z = latent_noise(gen, 2000, self.model_cfg.mapping_dim, device=self.device)
-        av = self.state.model.map_z(z).mean(dim=0, keepdim=True)
-        return truncate_w(w, av, self.train_cfg.trunc_psi)
+        return self.state.model.map_z(z).mean(dim=0, keepdim=True)
+
+    def truncated_w(self, w: torch.Tensor) -> torch.Tensor:
+        """The truncation trick around :meth:`style_mean`."""
+        return truncate_w(w, self.style_mean(), self.train_cfg.trunc_psi)
 
     @torch.no_grad()
     def generate_images(self, w_styles, noise, ema: bool = False) -> np.ndarray:
@@ -296,3 +328,133 @@ class Trainer:
             wmix = torch.cat([wmix, probs], dim=-1)
         save_image_grid(self.generate_images(wmix, noise, ema=True), str(out / f"{num}-mr.png"),
                         rows)
+
+    @torch.no_grad()
+    def generate_interpolation(self, num: int = 0, num_steps: int = 100,
+                               num_rows: Optional[int] = None, save_frames: bool = False) -> str:
+        """A looping GIF (80 ms a frame) of ``num_rows``² truncated EMA
+        samples moving along slerp paths between two z draws, ratios
+        ``linspace(0, 8, num_steps)`` as the reference has them, to
+        ``results/<name>/{num}.gif``; with ``save_frames`` also each frame as
+        ``results/<name>/{num}/{i}.png``. Returns the GIF's path."""
+        from PIL import Image
+
+        self.init_stylex()
+        cfg, model = self.model_cfg, self.state.model
+        n = num_rows or self.train_cfg.num_image_tiles
+        total, L = n * n, model.num_layers
+        gen = torch.Generator(device=self.device).manual_seed(num)
+        noise = image_noise(gen, total, cfg.image_size, device=self.device)
+        z_low = latent_noise(gen, total, cfg.mapping_dim, device=self.device)
+        z_high = latent_noise(gen, total, cfg.mapping_dim, device=self.device)
+        av = self.style_mean()
+        frames = []
+        for ratio in np.linspace(0.0, 8.0, num_steps):
+            w = truncate_w(model.map_z(slerp(float(ratio), z_low, z_high), ema=True), av,
+                           self.train_cfg.trunc_psi)
+            if cfg.arch == Arch.NEW:
+                w = torch.cat([w, torch.full((total, cfg.num_classes), 1.0 / cfg.num_classes,
+                                             device=self.device)], dim=-1)
+            imgs = self.generate_images(expand_styles(w, L), noise, ema=True)
+            frames.append(Image.fromarray(make_grid(to_uint8(imgs), nrow=n)))
+        out = self.results_dir / self.name / f"{num}.gif"
+        frames[0].save(out, save_all=True, append_images=frames[1:], duration=80, loop=0)
+        if save_frames:
+            fdir = self.results_dir / self.name / f"{num}"
+            fdir.mkdir(exist_ok=True)
+            for i, frame in enumerate(frames):
+                frame.save(fdir / f"{i}.png")
+        return str(out)
+
+    # -------------------------------------------------------------------- FID
+    def fid_draws(self, i: int, b: int):
+        """z and noise of :meth:`calculate_fid`'s fake batch ``i`` (``b``
+        images), from a generator seeded with ``i``."""
+        gen = torch.Generator(device=self.device).manual_seed(i)
+        return (latent_noise(gen, b, self.model_cfg.mapping_dim, device=self.device),
+                image_noise(gen, b, self.model_cfg.image_size, device=self.device))
+
+    @torch.no_grad()
+    def calculate_fid(self, num_batches: int, eval_batch_images: int = 64) -> float:
+        """FID between ``num_batches`` train batches of real images and as
+        many EMA samples (no truncation; on the NEW arch with uniform class
+        probabilities). The images are regrouped into batches of
+        ``eval_batch_images``.
+
+        The real side's statistics are cached in ``fid/<name>/real_stats.npz``
+        and reused when the extractor's tag and ``num_batches`` match;
+        ``clear_fid_cache`` recomputes them once."""
+        self.init_stylex()
+        cfg, tc, model = self.model_cfg, self.train_cfg, self.state.model
+        L = model.num_layers
+        total = num_batches * tc.batch_size
+        group = max(1, eval_batch_images // tc.batch_size)
+
+        def real_batches():
+            done = 0
+            while done < total:
+                k = min(group, math.ceil((total - done) / tc.batch_size))
+                yield as_float01(np.concatenate(
+                    [np.asarray(next(self.loader.sample_loader)) for _ in range(k)]))
+                done += k * tc.batch_size
+
+        def fake_batches():
+            done = i = 0
+            while done < total:
+                b = min(group * tc.batch_size, total - done)
+                z, noise = self.fid_draws(i, b)
+                i += 1
+                w = model.map_z(z, ema=True)
+                if cfg.arch == Arch.NEW:
+                    w = torch.cat([w, torch.full((b, cfg.num_classes), 1.0 / cfg.num_classes,
+                                                 device=self.device)], dim=-1)
+                yield self.generate_images(expand_styles(w, L), noise, ema=True)
+                done += b
+
+        feature_fn = resolve_feature_fn(device=self.device)
+        cache = self.fid_dir / "real_stats.npz"
+        mu_r = cov_r = None
+        if cache.exists() and not self.clear_fid_cache:
+            d = np.load(cache, allow_pickle=False)
+            if ("extractor" in d.files and str(d["extractor"]) == feature_fn.tag
+                    and "num_batches" in d.files and int(d["num_batches"]) == num_batches):
+                mu_r, cov_r = d["mu"], d["cov"]
+        if mu_r is None:
+            mu_r, cov_r = compute_feature_stats(real_batches(), feature_fn)
+            self.fid_dir.mkdir(parents=True, exist_ok=True)
+            np.savez(cache, mu=mu_r, cov=cov_r, extractor=np.str_(feature_fn.tag),
+                     num_batches=num_batches)
+            self.clear_fid_cache = False
+        mu_f, cov_f = compute_feature_stats(fake_batches(), feature_fn)
+        return frechet_distance(mu_r, cov_r, mu_f, cov_f)
+
+
+class ModelLoader:
+    """A checkpoint for inference: z -> w -> images with the live nets."""
+
+    def __init__(self, base_dir: str = "./", name: str = "default", load_from: int = -1,
+                 model_cfg: Optional[ModelConfig] = None, classifier_name: str = "resnet",
+                 classifier_path: Optional[str] = None, device=None):
+        self.trainer = Trainer(name=name, base_dir=base_dir, model_cfg=model_cfg,
+                               classifier_name=classifier_name,
+                               classifier_path=classifier_path, device=device)
+        self.trainer.load(load_from)
+
+    @torch.no_grad()
+    def noise_to_styles(self, noise: torch.Tensor,
+                        trunc_psi: Optional[float] = None) -> torch.Tensor:
+        """(B, mapping_dim) z -> (B, w) through the live S, truncated
+        toward the mean w with ``trunc_psi``."""
+        w = self.trainer.state.model.map_z(noise)
+        if trunc_psi is not None:
+            w = truncate_w(w, self.trainer.style_mean(), trunc_psi)
+        return w
+
+    def styles_to_images(self, w: torch.Tensor) -> np.ndarray:
+        """(B, w) or (B, layers, w) -> (B, S, S, 3) images in [0, 1] from the
+        live G, with zero noise."""
+        cfg = self.trainer.model_cfg
+        if w.dim() == 2:
+            w = expand_styles(w, self.trainer.state.model.num_layers)
+        noise = torch.zeros(w.shape[0], cfg.image_size, cfg.image_size, 1, device=w.device)
+        return self.trainer.generate_images(w, noise)

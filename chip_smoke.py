@@ -67,6 +67,24 @@ Phases, in order; any failure exits non-zero:
    real statistics, an 8-frame interpolation GIF; (d) ``replay_results``
    on phase 3's records with (c)'s checkpoint and one user study at
    512-pixel panels.
+9. Weights in and out at full width, float32 with TF32 off unless stated:
+   (a) phase 5's float32 trainer (Adam moments and ``pl_mean`` set) saved
+   as the JAX package's ``model_1.ckpt`` and loaded by ``Trainer.load(1)``
+   into a fresh trainer: every parameter, buffer, Adam moment and count,
+   the step and ``pl_mean`` equal bit for bit; one train step from each on
+   the same batch and draws, losses and parameters within phase 6's
+   tolerance; (b) ``Trainer.load(1, inference=True, ship_ema=False,
+   param_dtype=bfloat16)`` (device memory against the full load's,
+   ``train()`` refused), then ``run_attfind --name --load-from 1 --dtype
+   bfloat16`` on 4 synthetic images with ResNet-18, its records equal bit
+   for bit to ``attfind_extraction`` on the source's live nets cast to
+   bfloat16; (c) MobileNetV2, LPIPS and InceptionV3 ``.msgpack`` trees
+   written by ``ingest`` and read back, outputs equal to the ``.pt``
+   route's; (d) ``train_classifier --dataset synthetic``, MobileNetV2 at
+   64 px for one epoch and ResNet-18 at 224 px progressively for three,
+   the saved ``classifier.msgpack`` reproducing the trainer's validation
+   logits; (e) ``run_counterfactual`` with phase 3's model saved as a
+   ``.ckpt`` on phase 8's records, ``fid_results.csv`` equal to phase 8's.
 
 Phase 2 also holds the blur fused with 2x decimation, which no path runs,
 at the D/E shapes of training. The script prints a ``kernels`` JSON line
@@ -518,7 +536,7 @@ def _train_run(card: str, base: Path, label: str, model_cfg, tc, n_steps: int,
     each timed by CUDA events, with the kernels' launches counted from 0 and
     the peak memory of the steps; ``literal`` forces the literal resample
     graph. ``moving`` (model -> tensors) must all change. Returns the run's
-    record and the trainer's model."""
+    record and the trainer (its loader stopped)."""
     from stylex_tpu_torch.ops import LAUNCHES, reset_launches
     from stylex_tpu_torch.ops.fusion import prefer_literal_resample
     from stylex_tpu_torch.train.trainer import Trainer
@@ -572,14 +590,16 @@ def _train_run(card: str, base: Path, label: str, model_cfg, tc, n_steps: int,
     for name in ON_PATH:
         if launches[name] <= 0:
             raise AssertionError(f"{label}: training did not launch kernel {name}")
-    return res, model
+    return res, trainer
 
 
 def training_phase(card: str):
+    """Phase 5; returns its record and the float32 fused-graph trainer after
+    its 6 steps (Adam moments and ``pl_mean`` set), which phase 9 saves."""
     from stylex_tpu_torch.config import ModelConfig, TrainConfig
 
     base = Path(tempfile.mkdtemp(prefix="stylex_train_", dir=OUT_DIR))
-    out = {}
+    out, kept = {}, None
     try:
         for label, dtype, n_steps, literal in (("float32", "float32", 6, False),
                                                 ("float32_literal", "float32", 6, True),
@@ -587,7 +607,11 @@ def training_phase(card: str):
             tc = TrainConfig(pl_start_step=0, pl_every=4, ema_start_step=0, ema_every=2,
                              save_every=1000, evaluate_every=1000, num_image_tiles=4,
                              compute_dtype=dtype)
-            res, _ = _train_run(card, base, label, ModelConfig(), tc, n_steps, literal)
+            res, trainer = _train_run(card, base, label, ModelConfig(), tc, n_steps, literal)
+            if label == "float32":  # kept for phase 9 on the host, off the device's memory
+                _state_to(trainer.state, "cpu")
+                kept = trainer
+            del trainer
             out[label] = res
             ema_checks, rows = res["ema"], res["steps"]
             if dtype == "float32":
@@ -601,7 +625,18 @@ def training_phase(card: str):
                     raise AssertionError(f"EMA reset/update did not fire: {ema_checks}")
     finally:
         shutil.rmtree(base, ignore_errors=True)
-    return out
+    return out, kept
+
+
+def _state_to(state, device) -> None:
+    """Move a train state's model, Adam moments and ``pl_mean`` to
+    ``device`` (values unchanged; Adam's step counts stay on the host)."""
+    state.model.to(device)
+    for opt in (state.g_opt, state.d_opt):
+        for st in opt.state.values():
+            for k in ("exp_avg", "exp_avg_sq"):
+                st[k] = st[k].to(device)
+    state.pl_mean = state.pl_mean.to(device)
 
 
 # ------------------------------------------------------------------ phase 6
@@ -847,7 +882,7 @@ def options_phase(card: str):
                      num_image_tiles=4)
     base = Path(tempfile.mkdtemp(prefix="stylex_options_", dir=OUT_DIR))
     try:
-        res, model = _train_run(card, base, "options", cfg, tc, 3, moving=lambda m: [
+        res, _ = _train_run(card, base, "options", cfg, tc, 3, moving=lambda m: [
             m.D.quantize_blocks[1].codebook, m.encoder.quantize_blocks[1].codebook,
             m.G.to_initial_block.weight, m.G.attns[3][0].fn.fn.to_q.weight,
             m.D.attn_blocks[0][0].fn.fn.to_q.weight])
@@ -916,7 +951,9 @@ def evaluation_phase(card: str, f32_run):
     with FID and the evaluation CLIs, float32 with TF32 off. The Inception
     weights are the port's seeded init, saved as a torchvision-layout state
     dict and read through ``STYLEX_TPU_INCEPTION``; (c) unsets it, so the
-    trainer takes its default extractor, the seeded AlexNet."""
+    trainer takes its default extractor, the seeded AlexNet. Returns the
+    record and (b)'s records, picks and ``fid_results.csv`` rows, which
+    phase 9 (e) holds the counterfactual runner against."""
     import os
 
     from stylex_tpu_torch.device import set_float32_precision
@@ -931,7 +968,7 @@ def evaluation_phase(card: str, f32_run):
     out = {}
     try:
         out["inception"] = _eval_inception(card, f32_run)
-        out["counterfactual"] = _eval_counterfactual(card, f32_run, base)
+        out["counterfactual"], cf_run = _eval_counterfactual(card, f32_run, base)
         del os.environ[ENV]
         out["training"] = _eval_training(card, base)
         out["clis"] = _eval_clis(card, base, f32_run[1])
@@ -940,7 +977,7 @@ def evaluation_phase(card: str, f32_run):
         if saved is not None:
             os.environ[ENV] = saved
         shutil.rmtree(base, ignore_errors=True)
-    return out
+    return out, cf_run
 
 
 def _eval_inception(card: str, f32_run):
@@ -1026,10 +1063,11 @@ def _eval_counterfactual(card: str, f32_run, base: Path):
     for name in ON_PATH:
         if launches[name] <= 0:
             raise AssertionError(f"the counterfactual protocol did not launch kernel {name}")
-    return dict(picks=picks, rejected=rejected, effect_rescale=float(1.0 / first),
-                search_s=t_search, counterfactual_max_abs_err=cf_errs, counterfactual_s=cf_s,
-                fids=fids, fid_topk_s=t_fid, frechet_s=fd.seconds, feature_stats_s=st.seconds,
-                generation_s=gen_s, launches=launches)
+    result = dict(picks=picks, rejected=rejected, effect_rescale=float(1.0 / first),
+                  search_s=t_search, counterfactual_max_abs_err=cf_errs, counterfactual_s=cf_s,
+                  fids=fids, fid_topk_s=t_fid, frechet_s=fd.seconds, feature_stats_s=st.seconds,
+                  generation_s=gen_s, launches=launches)
+    return result, dict(records=records, picks=picks, rows=rows)
 
 
 def _eval_training(card: str, base: Path):
@@ -1137,6 +1175,411 @@ def _eval_clis(card: str, base: Path, records):
                 user_study_frames_ms=frames_ms, launches=launches)
 
 
+# ------------------------------------------------------------------ phase 9
+
+
+def weights_phase(card: str, src, f32_run, cf_run):
+    """Phase 9: model files in and out at full width, float32 with TF32 off
+    unless stated. (a) phase 5's float32 trainer saved as the JAX package's
+    ``model_1.ckpt`` and loaded in full by a fresh trainer, equal bit for
+    bit, then one train step from each on the same batch and draws; (b) an
+    inference load in bfloat16 and ``run_attfind --name`` on it against an
+    in-process sweep; (c) MobileNetV2, LPIPS and InceptionV3 ``.msgpack``
+    trees written by ``ingest`` and read back against the ``.pt`` route;
+    (d) classifier pretraining through ``train_classifier``; (e) the
+    counterfactual runner on phase 8's records against phase 8's
+    ``fid_topk`` rows."""
+    from stylex_tpu_torch.device import set_float32_precision
+
+    set_float32_precision()
+    _state_to(src.state, "cuda")
+    base = Path(tempfile.mkdtemp(prefix="stylex_weights_", dir=OUT_DIR))
+    out = {}
+    try:
+        out["full_load"], fresh = _weights_full_load(card, src, base)
+        try:
+            # before any step moves the source away from the file
+            out["inference_load"] = _weights_inference_load(card, src, base,
+                                                            out["full_load"]["device_bytes"])
+            out["full_load"].update(_weights_resumed_step(card, src, fresh))
+        finally:
+            fresh.close()
+        out["trees"] = _weights_trees(card, base, f32_run)
+        out["classifier_training"] = _weights_classifier_training(card, base)
+        out["counterfactual_runner"] = _weights_counterfactual_runner(card, base, f32_run, cf_run)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def _adam_moments(state):
+    """parameter name -> (exp_avg, exp_avg_sq, step, lr, betas, eps), copied,
+    of each parameter that has Adam state."""
+    names = {id(p): k for k, p in state.model.named_parameters()}
+    out = {}
+    for opt in (state.g_opt, state.d_opt):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                st = opt.state.get(p)
+                if st:
+                    out[names[id(p)]] = (st["exp_avg"].detach().clone(),
+                                         st["exp_avg_sq"].detach().clone(), float(st["step"]),
+                                         group["lr"], group["betas"], group["eps"])
+    return out
+
+
+def _state_tensors(state):
+    """name -> tensor of the model's parameters and buffers and of each
+    parameter's Adam moments and count."""
+    out = dict(state.model.state_dict())
+    for k, (m1, v1, step, *_) in _adam_moments(state).items():
+        out.update({f"adam.{k}.exp_avg": m1, f"adam.{k}.exp_avg_sq": v1,
+                    f"adam.{k}.step": torch.tensor(step)})
+    return out
+
+
+def _weights_full_load(card: str, src, base: Path):
+    """(a) Save, then a full load into a fresh trainer: every tensor
+    equal."""
+    from stylex_tpu_torch.train.trainer import Trainer
+    from stylex_tpu_torch.utils.checkpoint import save_jax_checkpoint
+
+    models = base / "models"
+    t_save, path = _sync_s(lambda: save_jax_checkpoint(str(models), "smoke9", 1, src.state))
+    (models / "smoke9" / ".config.json").write_text(src.model_cfg.to_json())
+    size = Path(path).stat().st_size
+    log(f"  (a) save_jax_checkpoint of phase 5's float32 trainer (step {src.state.step}): "
+        f"{size} bytes = {size / 1e9:.4f} GB in {t_save:.3f} s [{card}]")
+    fresh = Trainer(name="smoke9", base_dir=str(base), train_cfg=src.train_cfg,
+                    classifier_name="resnet", seed=1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t_load, _ = _sync_s(lambda: fresh.load(1))
+    full_bytes = torch.cuda.memory_allocated() - before
+    want, got = _state_tensors(src.state), _state_tensors(fresh.state)
+    unequal = sorted(k for k in want if k not in got or not torch.equal(got[k], want[k]))
+    unequal += sorted(k for k in got if k not in want)
+    same_counters = (fresh.state.step == src.state.step
+                     and torch.equal(fresh.state.pl_mean, src.state.pl_mean))
+    log(f"  (a) Trainer.load(1) in full: {t_load:.3f} s, device memory +{full_bytes} bytes "
+        f"({full_bytes / 2**20:.1f} MiB); {len(want)} tensors (parameters, buffers, Adam "
+        f"moments and counts), {len(unequal)} unequal; step {fresh.state.step}, pl_mean "
+        f"{float(fresh.state.pl_mean):.6g} [{card}]")
+    if unequal or not same_counters or float(src.state.pl_mean) < 0:
+        raise AssertionError(f"full load: unequal {unequal[:8]}, counters {same_counters}, "
+                             f"pl_mean {float(src.state.pl_mean)}")
+    return dict(bytes=size, save_s=t_save, load_s=t_load, device_bytes=full_bytes,
+                tensors=len(want)), fresh
+
+
+def _weights_resumed_step(card: str, src, fresh):
+    """(a) One train step from the source and from the loaded trainer on the
+    same batch and draws: losses within phase 6's rtol, and the gradients,
+    read from Adam's first moments (m_new = b1 m_old + (1 - b1) g), within
+    phase 6's 1e-4 x max|g| per tree. Each parameter update of the loaded
+    trainer is then Adam's from its own moments, learning rate and count
+    (1e-4 relative plus two float32 ulps of |p|): the restored state is the
+    one the step used. The parameters' own difference is reported: Adam
+    divides by sqrt(v), which magnifies rounding where v is small."""
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+    from stylex_tpu_torch.train.steps import draw_step
+
+    fresh.set_data_src(dataset_name="synthetic")
+    batch = next(fresh.loader)
+    tc, cfg = src.train_cfg, src.model_cfg
+    draws = draw_step(torch.Generator(device="cuda").manual_seed(9), cfg, tc, tc.batch_size,
+                      src.state.model.num_layers, src.aug_prob or 0.0, src.state.step)
+    states = {"source": src.state, "loaded": fresh.state}
+    before = {label: ({k: p.detach().clone() for k, p in st.model.named_parameters()},
+                      _adam_moments(st)) for label, st in states.items()}
+    reset_launches()
+    metrics = {label: {k: float(v) for k, v in trainer._step_fn(trainer.state, batch,
+                                                                draws).items()}
+               for label, trainer in (("source", src), ("loaded", fresh))}
+    launches = dict(LAUNCHES)
+    m_src, m_new = metrics["source"], metrics["loaded"]
+    loss_err = max(abs(m_new[k] - m_src[k]) / max(abs(m_src[k]), 1e-30) for k in m_src)
+
+    grads, after = {}, {}
+    for label, st in states.items():
+        params_before, adam_before = before[label]
+        adam_after = _adam_moments(st)
+        grads[label], after[label] = {}, {}
+        for key, (m1, v1, step, lr, (b1, b2), eps) in adam_after.items():
+            grads[label][key] = (m1 - b1 * adam_before[key][0]) / (1 - b1)
+            after[label][key] = (m1, v1, step, lr, b1, b2, eps)
+    grad_err, formula_err = 0.0, 0.0
+    for tree in ("encoder", "S", "G", "D"):
+        keys = [k for k in grads["source"] if k.startswith(tree + ".")]
+        scale = max(float(grads["source"][k].abs().max()) for k in keys)
+        for k in keys:
+            grad_err = max(grad_err, float((grads["loaded"][k] - grads["source"][k]).abs().max())
+                           / max(scale, 1e-30))
+    loaded_p = dict(fresh.state.model.named_parameters())
+    for k, (m1, v1, step, lr, b1, b2, eps) in after["loaded"].items():
+        p0 = before["loaded"][0][k].double()
+        want = -lr / (1 - b1 ** step) * m1.double() / (
+            (v1.double() / (1 - b2 ** step)).sqrt() + eps)
+        err = (loaded_p[k].detach().double() - p0 - want).abs()
+        bound = 1e-4 * want.abs() + 2.0 ** -22 * p0.abs() + 1e-12
+        formula_err = max(formula_err, float((err / bound).max()))
+    src_p = dict(src.state.model.named_parameters())
+    param_err, bitwise = 0.0, True
+    for tree in ("encoder", "S", "G", "D"):
+        keys = [k for k in src_p if k.startswith(tree + ".")]
+        moved = max(float((src_p[k].detach() - before["source"][0][k]).abs().max())
+                    for k in keys)
+        for k in keys:
+            d = float((loaded_p[k].detach() - src_p[k].detach()).abs().max())
+            bitwise &= d == 0.0
+            param_err = max(param_err, d / max(moved, 1e-30))
+    log(f"  (a) one step from each (step {src.state.step - 1}): metrics {m_src}; max rel "
+        f"metric diff {loss_err:.3g} (tol {CPU_RTOL}); gradients from the first moments: "
+        f"max |diff| {grad_err:.3g} x the tree's max|g| (tol {CPU_ATOL}); the loaded "
+        f"trainer's updates against Adam's from its moments: {formula_err:.3g} of the bound "
+        f"(must be <= 1); parameters: max |diff| {param_err:.3g} x the tree's largest update, "
+        f"bit for bit {bitwise}; launches {launches} [{card}]")
+    if loss_err > CPU_RTOL or grad_err > CPU_ATOL or formula_err > 1.0:
+        raise AssertionError(f"steps from the source and the loaded trainer disagree: metrics "
+                             f"{loss_err}, gradients {grad_err}, Adam updates {formula_err}")
+    for name in ON_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"the resumed train step did not launch kernel {name}")
+    return dict(step_metrics=m_src, step_metric_rel_err=loss_err, step_grad_rel_err=grad_err,
+                step_adam_formula_err=formula_err, step_param_rel_err=param_err,
+                step_bitwise=bitwise, launches=launches)
+
+
+def _weights_inference_load(card: str, src, base: Path, full_bytes: int):
+    """(b) ``load(inference=True, ship_ema=False, param_dtype=bfloat16)``:
+    its device memory, ``train()`` refused; ``run_attfind --name`` on 4
+    synthetic images against ``attfind_extraction`` on the source's live
+    nets cast to bfloat16, the same images, noise and settings."""
+    import copy
+
+    from stylex_tpu_torch import run_attfind
+    from stylex_tpu_torch.attfind import attfind_extraction, load_records, records_file_name
+    from stylex_tpu_torch.data import SyntheticImageDataset
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+    from stylex_tpu_torch.ops.latents import image_noise
+    from stylex_tpu_torch.train.trainer import Trainer
+
+    inf = Trainer(name="smoke9", base_dir=str(base), train_cfg=src.train_cfg,
+                  classifier_name="resnet", seed=1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t_load, _ = _sync_s(lambda: inf.load(1, inference=True, ship_ema=False,
+                                         param_dtype=torch.bfloat16))
+    inf_bytes = torch.cuda.memory_allocated() - before
+    inf.set_data_src(dataset_name="synthetic")
+    try:
+        inf.train()
+        refused = False
+    except RuntimeError:
+        refused = True
+    finally:
+        inf.close()
+    del inf
+    log(f"  (b) Trainer.load(1, inference=True, ship_ema=False, param_dtype=bfloat16): "
+        f"{t_load:.3f} s, device memory +{inf_bytes} bytes ({inf_bytes / 2**20:.1f} MiB) "
+        f"against the full load's +{full_bytes} ({full_bytes / 2**20:.1f} MiB): "
+        f"{inf_bytes / full_bytes:.3f}x; train() refused: {refused} [{card}]")
+    if not refused:
+        raise AssertionError("train() ran after an inference load")
+
+    out = base / "attfind"
+    reset_launches()
+    t_cli, _ = _sync_s(lambda: run_attfind.main(
+        ["--name", "smoke9", "--base-dir", str(base), "--load-from", "1", "--dtype", "bfloat16",
+         "--coord-batch", str(COORD_BATCH), "--dataset-name", "synthetic", "--num-images",
+         str(N_IMAGES), "--classifier-name", "resnet", "--results-folder", str(out)]))
+    launches = dict(LAUNCHES)
+    got = load_records(str(out / records_file_name()))
+    cfg = src.model_cfg
+    model = copy.deepcopy(src.state.model).to(torch.bfloat16).eval()
+    clf = copy.deepcopy(src.classifier).to(torch.bfloat16)
+    ds = SyntheticImageDataset(N_IMAGES, cfg.image_size)
+    images = np.stack([ds[i] for i in range(N_IMAGES)])
+    noise = image_noise(torch.Generator().manual_seed(42), 1, cfg.image_size).numpy()
+    want = attfind_extraction(model, clf.classify_images, images, noise, coord_batch=COORD_BATCH,
+                              compute_dtype=torch.bfloat16, progress=False)
+    del model, clf
+    fields = ("style_change", "latents", "base_prob", "minima", "maxima", "style_coordinates",
+              "original_images", "noise", "discriminator")
+    diffs = {f: float(np.abs(getattr(got, f) - getattr(want, f)).max()) for f in fields}
+    log(f"  (b) run_attfind --name --load-from 1 --dtype bfloat16 --coord-batch {COORD_BATCH} "
+        f"({N_IMAGES} synthetic images, ResNet-18): {t_cli:.3f} s; records against the "
+        f"in-process sweep, max |diff| {diffs} (must be 0); launches {launches} [{card}]")
+    if any(d != 0.0 for d in diffs.values()):
+        raise AssertionError(f"run_attfind on the loaded checkpoint differs: {diffs}")
+    for name in ON_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"run_attfind on the loaded checkpoint did not launch {name}")
+    return dict(load_s=t_load, device_bytes=inf_bytes, ratio_to_full=inf_bytes / full_bytes,
+                train_refused=refused, run_attfind_s=t_cli, record_max_abs_diff=diffs,
+                launches=launches)
+
+
+def _lpips_package_state_dict(params):
+    """The port's LPIPS params in ``lpips.LPIPS(net='alex')``'s key layout
+    (the AlexNet convs at slice indices 0, 3, 6, 8, 10; the taps as
+    (1, C, 1, 1) 1x1 conv weights)."""
+    sd = {}
+    for i, idx in enumerate((0, 3, 6, 8, 10)):
+        sd[f"net.slice{i + 1}.{idx}.weight"] = params[f"conv{i}"]["weight"].cpu()
+        sd[f"net.slice{i + 1}.{idx}.bias"] = params[f"conv{i}"]["bias"].cpu()
+        sd[f"lin{i}.model.1.weight"] = params[f"lin{i}"].cpu().reshape(1, -1, 1, 1)
+    return sd
+
+
+def _weights_trees(card: str, base: Path, f32_run):
+    """(c) ``.msgpack`` trees of the seeded MobileNetV2, LPIPS and
+    InceptionV3 written by the port's ``ingest`` and read back by
+    ``build_classifier``, ``load_lpips_params`` and ``STYLEX_TPU_INCEPTION``:
+    outputs equal to the ``.pt`` route's, bit for bit."""
+    import os
+
+    from stylex_tpu_torch import ingest
+    from stylex_tpu_torch.eval.counterfactual import create_counterfactual_dataset
+    from stylex_tpu_torch.models import build_classifier
+    from stylex_tpu_torch.models import lpips as tlpips
+    from stylex_tpu_torch.models.inception import ENV, build_inception, default_pool3_features
+
+    (model, _), records = f32_run
+    x = torch.from_numpy(np.ascontiguousarray(
+        create_counterfactual_dataset(model, None, records, [], 0).transpose(0, 3, 1, 2))).cuda()
+    res = {}
+    pt, mp = base / "mobilenet.pt", base / "mobilenet.msgpack"
+    torch.save(build_classifier("mobilenet", 64, seed=0).net.state_dict(), pt)
+    ingest.ingest_classifier(str(pt), "mobilenet", str(mp))
+    want = build_classifier("mobilenet", 64, checkpoint_path=str(pt)).classify_images(x)
+    got = build_classifier("mobilenet", 64, checkpoint_path=str(mp)).classify_images(x)
+    res["mobilenet_equal"] = bool(torch.equal(got, want))
+
+    pt, mp = base / "lpips.pt", base / "lpips.msgpack"
+    torch.save(_lpips_package_state_dict(tlpips.init_lpips_params(seed=3, device="cpu")), pt)
+    ingest.ingest_lpips(str(pt), str(mp))
+    y = x.flip(0)
+    want = tlpips.lpips_distance(tlpips.load_lpips_params(str(pt), "cuda"), x, y)
+    got = tlpips.lpips_distance(tlpips.load_lpips_params(str(mp), "cuda"), x, y)
+    res["lpips_equal"] = bool(torch.equal(got, want))
+
+    pt, mp = base / "inception.pt", base / "inception.msgpack"
+    torch.save(build_inception(seed=0, device="cpu").state_dict(), pt)
+    ingest.ingest_inception(str(pt), str(mp))
+    saved = os.environ.get(ENV)
+    try:
+        feats = {}
+        for label, path in (("pt", pt), ("msgpack", mp)):
+            os.environ[ENV] = str(path)
+            feats[label] = default_pool3_features("cuda")(x)
+    finally:
+        os.environ.pop(ENV, None)
+        if saved is not None:
+            os.environ[ENV] = saved
+    res["inception_equal"] = bool(torch.equal(feats["pt"], feats["msgpack"]))
+    res["bytes"] = {p.name: p.stat().st_size for p in base.glob("*.msgpack")}
+    log(f"  (c) .msgpack trees through ingest, read back against the .pt route on "
+        f"{tuple(x.shape)} images: MobileNetV2 logits equal {res['mobilenet_equal']}, LPIPS "
+        f"distances equal {res['lpips_equal']}, Inception pool3 equal {res['inception_equal']}; "
+        f"sizes {res['bytes']} [{card}]")
+    if not (res["mobilenet_equal"] and res["lpips_equal"] and res["inception_equal"]):
+        raise AssertionError(f"a .msgpack tree reads differently from its .pt: {res}")
+    return res
+
+
+def _weights_classifier_training(card: str, base: Path):
+    """(d) ``train_classifier --dataset synthetic``: MobileNetV2 at 64 px for
+    one epoch, ResNet-18 at 224 px progressively for three; finite losses,
+    the results JSON, and the saved ``classifier.msgpack`` reproducing the
+    trainer's validation logits through ``build_classifier``."""
+    from stylex_tpu_torch import train_classifier
+    from stylex_tpu_torch.models import build_classifier
+    from stylex_tpu_torch.models.classifiers import imagenet_normalize
+    from stylex_tpu_torch.train.classifier_training import ClassifierTrainer
+
+    res = {}
+    for label, argv in (("mobilenet", ["--model", "mobilenet", "--image-size", "64",
+                                       "--epochs", "1"]),
+                        ("resnet", ["--model", "resnet", "--progressive", "--image-size", "224",
+                                    "--epochs", "3"])):
+        out = base / f"clf_{label}"
+        args = train_classifier.parse_args(
+            ["--dataset", "synthetic", "--saved-models-dir", str(out), "--results-dir", str(out),
+             "--tensorboard-dir", str(out / "tb"), *argv])
+        with _Timed(ClassifierTrainer, "train_epoch") as epochs:
+            t, (trainer, results) = _sync_s(lambda: train_classifier.train(args))
+        losses = [results[f"epoch_{e}"]["loss"] for e in range(args.epochs)]
+        _, valid, _ = train_classifier.datasets(args)
+        batch = next(train_classifier.labeled_batches(valid, len(valid), shuffle=False))[0]
+        want = trainer.logits(batch)
+        clf = build_classifier(args.model, args.image_size,
+                               checkpoint_path=str(out / "classifier.msgpack"))
+        x = torch.from_numpy(batch).cuda().permute(0, 3, 1, 2).float() / 255.0
+        with torch.no_grad():
+            got = clf.net(imagenet_normalize(x))
+        err = float((got - want).abs().max())
+        n_train = 64  # the synthetic training set
+        ips = [n_train / s for s in epochs.seconds]
+        log(f"  (d) train_classifier {' '.join(argv)}: {t:.3f} s; losses {losses}; results "
+            f"{ {k: results[k] for k in ('test_accuracy', 'best_val_accuracy')} }; training "
+            f"epochs {', '.join(f'{s:.4f}' for s in epochs.seconds)} s = "
+            f"{', '.join(f'{v:.1f}' for v in ips)} images/s; classifier.msgpack through "
+            f"build_classifier against the trainer's validation logits: max |diff| {err:.3g} "
+            f"[{card}]")
+        if not all(np.isfinite(losses)) or not (out / "classifier.msgpack.json").exists():
+            raise AssertionError(f"{label}: losses {losses} or no results JSON")
+        if err > 1e-5 * max(float(want.abs().max()), 1.0):
+            raise AssertionError(f"{label}: the saved classifier gives other logits ({err})")
+        res[label] = dict(seconds=t, losses=losses, epoch_s=epochs.seconds, images_per_s=ips,
+                          logits_max_abs_err=err, **{k: results[k] for k in (
+                              "test_accuracy", "best_val_accuracy")})
+    return res
+
+
+def _weights_counterfactual_runner(card: str, base: Path, f32_run, cf_run):
+    """(e) ``run_counterfactual`` with phase 3's float32 model saved as a JAX
+    ``.ckpt``, phase 8's records and picks, and the seeded Inception
+    weights: ``fid_results.csv`` equal to phase 8's rows."""
+    import csv
+    import os
+
+    from stylex_tpu_torch import run_counterfactual
+    from stylex_tpu_torch.attfind import save_records
+    from stylex_tpu_torch.config import TrainConfig
+    from stylex_tpu_torch.models.inception import ENV, build_inception
+    from stylex_tpu_torch.train.state import create_train_state
+    from stylex_tpu_torch.utils.checkpoint import save_jax_checkpoint
+
+    (model, _), _ = f32_run
+    att = base / "counterfactual"
+    att.mkdir()
+    save_records(cf_run["records"], str(att / "style_change_records.npz"))
+    (att / "top_styles.json").write_text(json.dumps({"ranked": cf_run["picks"]}))
+    ckpt = save_jax_checkpoint(str(base / "cf_models"), "m", 0,
+                               create_train_state(model, model.cfg, TrainConfig()))
+    (base / "cf_config.json").write_text(model.cfg.to_json())
+    weights = base / "inception_seeded.pt"
+    torch.save(build_inception(seed=0, device="cpu").state_dict(), weights)
+    saved = os.environ.get(ENV)
+    os.environ[ENV] = str(weights)
+    try:
+        t, fids = _sync_s(lambda: run_counterfactual.main(
+            ["--checkpoint", ckpt, "--config", str(base / "cf_config.json"), "--attfind-dir",
+             str(att), "--k", "3", "--batch-size", "32", "--classifier-name", "mobilenet"]))
+    finally:
+        os.environ.pop(ENV, None)
+        if saved is not None:
+            os.environ[ENV] = saved
+    rows = list(csv.reader(open(att / "fid_results.csv")))
+    log(f"  (e) run_counterfactual on phase 8's records and picks, the model from a .ckpt: "
+        f"FIDs {fids} in {t:.3f} s; fid_results.csv equal to phase 8's: {rows == cf_run['rows']} "
+        f"[{card}]")
+    if rows != cf_run["rows"]:
+        raise AssertionError(f"fid_results.csv {rows} differs from phase 8's {cf_run['rows']}")
+    return dict(seconds=t, fids=fids, rows_equal=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--kernels-only", action="store_true",
@@ -1184,7 +1627,7 @@ def main(argv=None) -> int:
     cpu_errs = card_vs_cpu_phase()
 
     log("[phase 5] training path: Trainer.train() at the CLI defaults, full width")
-    train_out = training_phase(card)
+    train_out, f32_trainer = training_phase(card)
 
     log("[phase 6] card against CPU and a float64 witness: convolutions, then one train step, "
         "full width, float32, TF32 off")
@@ -1197,7 +1640,14 @@ def main(argv=None) -> int:
 
     log("[phase 8] evaluation: Inception, the counterfactual protocol, training with FID, "
         "the replay and user-study CLIs; float32, TF32 off")
-    eval_out = evaluation_phase(card, f32_run)
+    eval_out, cf_run = evaluation_phase(card, f32_run)
+
+    log("[phase 9] weights in and out: the JAX checkpoint format, an inference load and "
+        "run_attfind --name, .msgpack trees, classifier pretraining, the counterfactual runner")
+    t9 = time.perf_counter()
+    weights_out = weights_phase(card, f32_trainer, f32_run, cf_run)
+    weights_out["seconds"] = time.perf_counter() - t9
+    log(f"  phase 9 took {weights_out['seconds']:.1f} s [{card}]")
 
     sources = {"upsample2x_bilinear": "stylex_tpu_torch/csrc/upsample2x_bilinear.cu",
                "blur3": "stylex_tpu_torch/csrc/blur3.cu",
@@ -1216,6 +1666,10 @@ def main(argv=None) -> int:
              launches_eval=eval_out["counterfactual"]["launches"][name],
              launches_eval_train=eval_out["training"]["launches"][name],
              launches_eval_clis=eval_out["clis"]["launches"][name],
+             launches_weights=weights_out["full_load"]["launches"][name]
+             + weights_out["inference_load"]["launches"][name],
+             launches_weights_step=weights_out["full_load"]["launches"][name],
+             launches_weights_attfind=weights_out["inference_load"]["launches"][name],
              max_abs_err=s["max_abs_err"], ms=s["ms"], device_ms=s["device_ms"],
              plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
              bound_by="+".join(sorted(s["bound_by"])), library_ms=s["library_ms"],
@@ -1230,6 +1684,7 @@ def main(argv=None) -> int:
         main_path_checks=checks, ranked=ranked,
         card_vs_cpu=cpu_errs, training=train_out, conv_precision=conv_rows,
         train_card_vs_cpu=train_cpu_errs, options=options_out, evaluation=eval_out,
+        weights=weights_out,
         seconds=time.perf_counter() - t_start,
     )
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
@@ -1240,7 +1695,10 @@ def main(argv=None) -> int:
         f"the block-resume run, launches_train from the 6 float32 training steps on the fused "
         f"graph (launches_train_literal on the literal one), launches_options from phase 7, "
         f"launches_eval from phase 8's counterfactual step (launches_eval_train from its training "
-        f"with FID, launches_eval_clis from its replay and user-study CLIs)")
+        f"with FID, launches_eval_clis from its replay and user-study CLIs), launches_weights "
+        f"from phase 9: (a) the two train steps from the saved and the loaded trainer "
+        f"(launches_weights_step) plus (b) run_attfind on the inference load "
+        f"(launches_weights_attfind)")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,11 @@
 Flags are ``--key value`` or ``--key=value``, kebab or snake case, with
 Python literals for numbers, bools and lists; a bare flag means True. The
 names and defaults are the JAX package's CLI's, plus ``--device`` (default:
-the GPU; ``--device cpu`` runs on the host). Every model and train-step
+the GPU; ``--device cpu`` runs on the host). TensorBoard scalars go to
+``--tensorboard-dir`` (default ``tb_logs_stylex``; ``--tensorboard-dir
+None`` turns them off), ``--log`` names the metrics CSV that stands in for
+the reference's aim sink, and ``--dataset-name`` other than ``MNIST`` or
+``synthetic`` trains from the ``--data`` folder. Every model and train-step
 option of that CLI is taken: ``--attn-layers [1,2]``, ``--no-const``,
 ``--fq-layers [2] --fq-dict-size 256``, ``--encoder-class
 PhillipEncoder64``, ``--remat``, ``--cl-reg``, ``--fused-microbatches
@@ -90,6 +94,7 @@ def train_from_folder(
     calculate_fid_num_images: int = 12800,
     clear_fid_cache: bool = False,
     seed: int = 42,
+    log: bool = False,
     kl_scaling: float = 1.0,
     rec_scaling: float = 1.0,
     classifier_path: Optional[str] = None,
@@ -100,6 +105,7 @@ def train_from_folder(
     alternating_training: bool = True,
     kl_rec_during_disc: bool = False,
     dataset_name: Optional[str] = None,
+    tensorboard_dir: Optional[str] = "tb_logs_stylex",
     classifier_name: str = "resnet",
     use_old_architecture: bool = True,
     remat: bool = False,
@@ -140,7 +146,13 @@ def train_from_folder(
     trainer = Trainer(name=name, results_dir=results_dir, models_dir=models_dir,
                       model_cfg=model_cfg, train_cfg=train_cfg, classifier_name=classifier_name,
                       classifier_path=classifier_path, lpips_path=lpips_path, seed=seed,
-                      clear_fid_cache=clear_fid_cache, device=device)
+                      clear_fid_cache=clear_fid_cache, tensorboard_dir=tensorboard_dir,
+                      device=device)
+    if log:
+        # the reference's log=True turns on its aim sink; the metrics CSV,
+        # always on, takes its place here as in the JAX package
+        print(f"[stylex_tpu_torch] --log: the aim sink is replaced by the metrics CSV "
+              f"({trainer.results_dir / name / 'metrics.csv'}), which is always on")
     try:
         if generate:
             trainer.load(load_from)

@@ -1,9 +1,13 @@
-"""Frozen classifiers: ResNet-18 and MobileNetV2 with torchvision's
-state-dict keys, written out by hand (torchvision is not a dependency).
+"""Classifiers: ResNet-18 and MobileNetV2 with torchvision's state-dict
+keys, written out by hand (torchvision is not a dependency).
 
-Batch norm always uses its running statistics (eps 1e-5): these nets only
-ever classify. :class:`ClassifierBundle` keeps the reference adapters'
-preprocessing, asymmetry included:
+In eval mode, the only mode of the frozen nets that AttFind and StylEx
+training use, batch norm normalises with its running statistics (eps 1e-5)
+and dropout is off. In train mode (classifier pretraining) they follow the
+JAX package's flax modules: batch norm as ``nn.BatchNorm(momentum=0.9,
+epsilon=1e-5)``, and MobileNetV2's head dropout draws from the
+``torch.Generator`` passed to ``forward``. :class:`ClassifierBundle` keeps
+the reference adapters' preprocessing, asymmetry included:
 
 * ResNet resizes images bilinearly to 224 before classifying;
 * MobileNet resizes them with nearest to ``image_size`` and skips the
@@ -13,7 +17,7 @@ preprocessing, asymmetry included:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -25,6 +29,7 @@ __all__ = [
     "MobileNetV2",
     "ClassifierBundle",
     "build_classifier",
+    "read_classifier_weights",
     "imagenet_normalize",
 ]
 
@@ -40,12 +45,43 @@ def imagenet_normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 class FrozenBatchNorm2d(nn.BatchNorm2d):
-    """Batch norm that always normalises with its running statistics:
-    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``."""
+    """Batch norm ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. In
+    eval mode with the running statistics. In train mode as flax's
+    ``nn.BatchNorm(momentum=0.9)``: with the batch's mean and biased
+    variance, computed as E[x²] - E[x]² clipped at 0, and the running
+    statistics moved to ``0.9 * old + 0.1 * batch`` (torch's own batch norm
+    would store the unbiased variance)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(mean.detach(), alpha=1.0 - 0.9)
+                self.running_var.mul_(0.9).add_(var.detach(), alpha=1.0 - 0.9)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+
+
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout``: in train mode, keep each element with
+    probability ``1 - p`` (drawn from ``generator``) and scale it by
+    ``1 / (1 - p)``; identity in eval mode or at ``p = 0``."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in train mode draws from an explicit torch.Generator")
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def _conv_bn(c_in, c_out, k, stride=1, padding=0, groups=1, act=None) -> nn.Sequential:
@@ -85,7 +121,7 @@ class ResNet18(nn.Module):
             c_in = feats
         self.fc = nn.Linear(512, num_classes)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         for i in range(1, 5):
@@ -136,10 +172,12 @@ class MobileNetV2(nn.Module):
                 c_in = c
         features.append(_conv_bn(c_in, 1280, 1, act="relu6"))
         self.features = nn.Sequential(*features)
-        self.classifier = nn.Sequential(nn.Dropout(dropout_rate), nn.Linear(1280, num_classes))
+        self.classifier = nn.Sequential(Dropout(dropout_rate), nn.Linear(1280, num_classes))
 
-    def forward(self, x):
-        return self.classifier(self.features(x).mean(dim=(2, 3)))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout mask in train mode."""
+        x = self.classifier[0](self.features(x).mean(dim=(2, 3)), generator)
+        return self.classifier[1](x)
 
 
 class ClassifierBundle:
@@ -190,12 +228,30 @@ def _torchvision_init_(net: nn.Module, generator: torch.Generator) -> None:
                 m.bias.uniform_(-bound, bound, generator=generator)
 
 
+def read_classifier_weights(path: str, kind: str) -> Dict[str, torch.Tensor]:
+    """The torchvision-layout state dict of a classifier weights file: a
+    ``.msgpack`` (or ``.mp``) flax variables tree, or a torch state dict."""
+    if str(path).endswith((".msgpack", ".mp")):
+        from stylex_tpu_torch.models.convert import classifier_state_dict_from_jax
+        from stylex_tpu_torch.utils import flax_msgpack
+
+        tree = flax_msgpack.load(path)
+        try:
+            return classifier_state_dict_from_jax(tree, kind)
+        except (KeyError, TypeError) as e:
+            raise ValueError(f"{path} is not a {kind} classifier tree (missing {e})") from e
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def build_classifier(kind: str, image_size: int, num_classes: int = 2,
                      checkpoint_path: Optional[str] = None, seed: int = 0,
                      device=None) -> ClassifierBundle:
     """A frozen ``'resnet'`` or ``'mobilenet'`` classifier: torchvision's
-    init drawn from ``seed``, or a torchvision-layout state_dict from
-    ``checkpoint_path``. Placed on ``device`` (the GPU unless ``'cpu'``)."""
+    init drawn from ``seed``, or the weights in ``checkpoint_path``: an
+    ingested or pretrained ``.msgpack`` tree (the JAX package's flax
+    variables) or a torchvision-layout state_dict. A requested file that is
+    missing or holds no such weights raises. Placed on ``device`` (the GPU
+    unless ``'cpu'``)."""
     from stylex_tpu_torch.device import resolve_device
 
     device = resolve_device(device)
@@ -205,6 +261,5 @@ def build_classifier(kind: str, image_size: int, num_classes: int = 2,
     net = ResNet18(num_classes) if kind == "resnet" else MobileNetV2(num_classes)
     _torchvision_init_(net, torch.Generator().manual_seed(seed))
     if checkpoint_path is not None:
-        state = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
-        net.load_state_dict(state)
+        net.load_state_dict(read_classifier_weights(checkpoint_path, kind))
     return ClassifierBundle(kind, net.to(device), image_size, num_classes=num_classes)

@@ -21,6 +21,11 @@
 * :func:`inception_state_dict_from_jax` does it for the FID InceptionV3
   variables, into torchvision's keys.
 * :func:`load_reference_checkpoint` reads a reference ``.pt`` file.
+* Each bridge has its exact inverse (transposes, reshapes and flips only),
+  port -> JAX: :func:`stylex_state_dict_to_jax`, :func:`train_state_to_jax`
+  (which the port's ``save_jax_checkpoint`` writes),
+  :func:`classifier_tree_from_state_dict`, :func:`lpips_tree_from_params`
+  and :func:`inception_tree_from_state_dict` (which ``ingest`` writes).
 
 No JAX is needed: the trees are nested mappings of numpy arrays.
 """
@@ -41,8 +46,14 @@ __all__ = [
     "stylex_state_dict_from_jax",
     "lpips_params_from_jax",
     "train_state_from_jax",
+    "load_train_state_from_jax",
+    "stylex_state_dict_to_jax",
+    "train_state_to_jax",
     "classifier_state_dict_from_jax",
     "inception_state_dict_from_jax",
+    "classifier_tree_from_state_dict",
+    "lpips_tree_from_params",
+    "inception_tree_from_state_dict",
     "load_reference_checkpoint",
 ]
 
@@ -54,7 +65,16 @@ _STYLEX_PREFIXES = ("encoder.", "S.", "G.", "D.", "SE.", "GE.")
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+    """A float32 tensor of leaf ``a``: a view of it where it is a writable
+    float32 numpy array (a leaf of a file read by
+    :func:`~stylex_tpu_torch.utils.flax_msgpack.load`, so a checkpoint is
+    copied once, into place), else a copy."""
+    if torch.is_tensor(a):
+        return a.float()
+    arr = np.asarray(a, dtype=np.float32)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr)
 
 
 def _linear(sd: StateDict, key: str, p: Mapping) -> None:
@@ -202,18 +222,30 @@ def lpips_params_from_jax(params: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _adam_states(opt_state) -> Dict[str, Any]:
-    """The optax Adam states in a JAX optimizer state, by label: ``{'': s}``
-    for a plain ``optax.adam``, ``{'gen': s, 'enc': s}`` for the NEW arch's
-    ``multi_transform``. Read by attribute, so no optax is imported."""
-    if hasattr(opt_state, "inner_states"):  # multi_transform's PartitionState
-        return {label: _adam_states(s)[""] for label, s in opt_state.inner_states.items()}
-    if hasattr(opt_state, "inner_state"):  # MaskedState
-        return _adam_states(opt_state.inner_state)
-    if hasattr(opt_state, "mu"):
-        return {"": opt_state}
-    for s in opt_state:  # chain's tuple: the Adam state is one element
-        if hasattr(s, "mu") or hasattr(s, "inner_state") or hasattr(s, "inner_states"):
+def _get(node, key: str):
+    """``node[key]`` of a state-dict tree, ``node.key`` of an optax state;
+    None where there is none."""
+    return node.get(key) if isinstance(node, Mapping) else getattr(node, key, None)
+
+
+def _adam_states(opt_state) -> Dict[str, tuple]:
+    """The optax Adam states in a JAX optimizer state as ``(count, mu,
+    nu)``, by label: ``{'': s}`` for a plain ``optax.adam``, ``{'gen': s,
+    'enc': s}`` for the NEW arch's ``multi_transform``. Takes the optax
+    objects (read by attribute, so no optax is imported) or their
+    state-dict form, as a checkpoint stores it (a chain's tuple as
+    ``{'0': ..., '1': ...}``)."""
+    inner = _get(opt_state, "inner_states")  # multi_transform's PartitionState
+    if inner is not None:
+        return {label: _adam_states(s)[""] for label, s in inner.items()}
+    inner = _get(opt_state, "inner_state")  # MaskedState
+    if inner is not None:
+        return _adam_states(inner)
+    if _get(opt_state, "mu") is not None:
+        return {"": (_get(opt_state, "count"), _get(opt_state, "mu"), _get(opt_state, "nu"))}
+    children = opt_state.values() if isinstance(opt_state, Mapping) else opt_state
+    for s in children:  # chain's tuple: the Adam state is one element
+        if any(_get(s, k) is not None for k in ("mu", "inner_state", "inner_states")):
             return _adam_states(s)
     raise ValueError("no Adam state found in the JAX optimizer state")
 
@@ -228,38 +260,252 @@ def _load_adam(opt: torch.optim.Optimizer, params: Dict[str, torch.nn.Parameter]
         nu = _subtree_state_dict(name, nu_tree, cfg)
         for key in mu:
             p = params[key]
-            opt.state[p] = {"step": step.clone(), "exp_avg": mu[key].to(p.device),
-                            "exp_avg_sq": nu[key].to(p.device)}
+            opt.state[p] = {"step": step.clone(),
+                            "exp_avg": torch.empty_like(p).copy_(mu[key]),
+                            "exp_avg_sq": torch.empty_like(p).copy_(nu[key])}
+
+
+def load_train_state_from_jax(jax_state, state) -> None:
+    """Restore the JAX package's ``StylExTrainState``, or its state-dict
+    form as a ``.ckpt`` holds it under ``'state'`` (numpy or JAX leaves),
+    into the port's :class:`~stylex_tpu_torch.train.state.TrainState` in
+    place: live and EMA parameters, the quantize layers' codebooks, the
+    optax Adam ``mu``/``nu``/``count`` of G (per label in the NEW arch: the
+    other label's masked leaves are never read) and D, ``step`` and
+    ``pl_mean``."""
+    cfg = state.model.cfg
+    field = lambda name: _get(jax_state, name)
+    state.model.load_state_dict(
+        stylex_state_dict_from_jax({**field("params"), **field("ema_params")}, cfg))
+    params = dict(state.model.named_parameters())
+    state.g_opt.state.clear()
+    state.d_opt.state.clear()
+    g_adam = _adam_states(field("g_opt_state"))
+    for name in ("encoder", "S", "G"):
+        # one Adam over encoder/S/G, or the NEW arch's 'enc' and 'gen' labels
+        count, mu, nu = g_adam[""] if "" in g_adam else g_adam["enc" if name == "encoder" else "gen"]
+        _load_adam(state.g_opt, params, count, {name: (mu[name], nu[name])}, cfg)
+    count, mu, nu = _adam_states(field("d_opt_state"))[""]
+    _load_adam(state.d_opt, params, count, {"D": (mu, nu)}, cfg)
+    state.step = int(np.asarray(field("step")))
+    state.pl_mean = torch.tensor(float(np.asarray(field("pl_mean"))), device=state.device)
 
 
 def train_state_from_jax(jax_state, model_cfg: ModelConfig, train_cfg, device=None):
-    """The JAX package's ``StylExTrainState`` (numpy or JAX leaves) -> the
-    port's :class:`~stylex_tpu_torch.train.state.TrainState`: live and EMA
-    parameters, the quantize layers' codebooks, the optax Adam
-    ``mu``/``nu``/``count`` of G (per label in the NEW arch) and D,
-    ``step`` and ``pl_mean``. Placed on ``device`` (the GPU unless
-    ``'cpu'``)."""
+    """:func:`load_train_state_from_jax` into a new
+    :class:`~stylex_tpu_torch.train.state.TrainState` on ``device`` (the GPU
+    unless ``'cpu'``)."""
     from stylex_tpu_torch.device import resolve_device
     from stylex_tpu_torch.models.stylex import StylEx
     from stylex_tpu_torch.train.state import create_train_state
 
-    device = resolve_device(device)
-    tree = {**jax_state.params, **jax_state.ema_params}
-    model = StylEx(model_cfg)
-    model.load_state_dict(stylex_state_dict_from_jax(tree, model_cfg))
-    state = create_train_state(model.to(device), model_cfg, train_cfg)
-    params = dict(state.model.named_parameters())
-    g_adam = _adam_states(jax_state.g_opt_state)
-    for name in ("encoder", "S", "G"):
-        # one Adam over encoder/S/G, or the NEW arch's 'enc' and 'gen' labels
-        adam = g_adam[""] if "" in g_adam else g_adam["enc" if name == "encoder" else "gen"]
-        _load_adam(state.g_opt, params, adam.count,
-                   {name: (adam.mu[name], adam.nu[name])}, model_cfg)
-    d_adam = _adam_states(jax_state.d_opt_state)[""]
-    _load_adam(state.d_opt, params, d_adam.count, {"D": (d_adam.mu, d_adam.nu)}, model_cfg)
-    state.step = int(np.asarray(jax_state.step))
-    state.pl_mean = torch.tensor(float(np.asarray(jax_state.pl_mean)), device=device)
+    state = create_train_state(StylEx(model_cfg).to(resolve_device(device)), model_cfg,
+                               train_cfg)
+    load_train_state_from_jax(jax_state, state)
     return state
+
+
+# --------------------------------------------------- port -> JAX (inverse)
+# Each function below inverts the one of the same name without ``_to_jax``
+# exactly: transposes, reshapes and flips only, so a round trip is bit for
+# bit. Leaves are float32 numpy arrays on the host.
+
+
+def _n(t: torch.Tensor) -> np.ndarray:
+    """float32 numpy on the host; float64 stays float64."""
+    t = t.detach().to("cpu")
+    return (t if t.dtype == torch.float64 else t.float()).numpy()
+
+
+def _linear_to_jax(sd: StateDict, key: str) -> Dict[str, np.ndarray]:
+    p = {"kernel": _n(sd[f"{key}.weight"]).T}
+    if f"{key}.bias" in sd:
+        p["bias"] = _n(sd[f"{key}.bias"])
+    return p
+
+
+def _conv_to_jax(sd: StateDict, key: str) -> Dict[str, np.ndarray]:
+    p = {"kernel": _n(sd[f"{key}.weight"]).transpose(2, 3, 1, 0)}
+    if f"{key}.bias" in sd:
+        p["bias"] = _n(sd[f"{key}.bias"])
+    return p
+
+
+def _chan_norm_to_jax(sd: StateDict, key: str) -> Dict[str, np.ndarray]:
+    return {"g": _n(sd[f"{key}.g"]).reshape(-1), "b": _n(sd[f"{key}.b"]).reshape(-1)}
+
+
+def _attn_to_jax(sd: StateDict, key: str) -> Dict[str, Any]:
+    a = f"{key}.0.fn.fn"
+    return {"norm1": _chan_norm_to_jax(sd, f"{key}.0.fn.norm"),
+            "attn": {"to_q": _conv_to_jax(sd, f"{a}.to_q"),
+                     "to_kv_depth": _conv_to_jax(sd, f"{a}.to_kv.net.0"),
+                     "to_kv_point": _conv_to_jax(sd, f"{a}.to_kv.net.1"),
+                     "to_out": _conv_to_jax(sd, f"{a}.to_out")},
+            "norm2": _chan_norm_to_jax(sd, f"{key}.1.fn.norm"),
+            "ff1": _conv_to_jax(sd, f"{key}.1.fn.fn.0"),
+            "ff2": _conv_to_jax(sd, f"{key}.1.fn.fn.2")}
+
+
+def _flat_linear_to_jax(sd: StateDict, key: str, channels: int) -> Dict[str, np.ndarray]:
+    w = _n(sd[f"{key}.weight"])  # (out, C*H*W), torch's (C, H, W) order
+    out_dim = w.shape[0]
+    k = w.reshape(out_dim, channels, -1).transpose(0, 2, 1).reshape(out_dim, -1).T
+    return {"kernel": k, "bias": _n(sd[f"{key}.bias"])}
+
+
+def _modules_under(sd: StateDict, prefix: str) -> list:
+    return sorted({k[len(prefix) + 1:].split(".")[0] for k in sd if k.startswith(prefix + ".")})
+
+
+def _debug_encoder_to_jax(sd: StateDict, prefix: str) -> Dict[str, Any]:
+    names = _modules_under(sd, prefix)
+    convs = sorted((k for k in names if k.startswith("conv")), key=lambda k: int(k[4:]))
+    p = {k: _conv_to_jax(sd, f"{prefix}.{k}") for k in convs}
+    (fc,) = [k for k in names if not k.startswith("conv")]
+    p[fc] = _flat_linear_to_jax(sd, f"{prefix}.{fc}", sd[f"{prefix}.{convs[-1]}.weight"].shape[0])
+    return p
+
+
+def _vq_to_jax(sd: StateDict, prefix: str) -> Dict[str, np.ndarray]:
+    tree = {}
+    for i in _modules_under(sd, f"{prefix}.quantize_blocks"):
+        q = f"{prefix}.quantize_blocks.{i}"
+        tree[f"codebook{i}"] = _n(sd[f"{q}.codebook"])
+        tree[f"cluster{i}"] = _n(sd[f"{q}.cluster_size"])
+        tree[f"avg{i}"] = _n(sd[f"{q}.embed_avg"])
+    return tree
+
+
+def _mapping_to_jax(sd: StateDict, prefix: str, depth: int) -> Dict[str, Any]:
+    return {f"fc{i}": _linear_to_jax(sd, f"{prefix}.net.{2 * i}") for i in range(depth)}
+
+
+def _generator_to_jax(sd: StateDict, prefix: str, cfg: ModelConfig) -> Dict[str, Any]:
+    p: Dict[str, Any] = {}
+    if f"{prefix}.initial_block" in sd:
+        p["initial_block"] = _n(sd[f"{prefix}.initial_block"]).transpose(0, 2, 3, 1)
+    else:  # no_const: undo the flip of both spatial axes
+        w = _n(sd[f"{prefix}.to_initial_block.weight"])  # (latent, C, 4, 4)
+        p["to_initial_block"] = {"kernel": w[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)}
+    p["initial_conv"] = _conv_to_jax(sd, f"{prefix}.initial_conv")
+    n_blocks = len(generator_filters(cfg.image_size, cfg.network_capacity, cfg.fmap_max)) - 1
+    oihw_to_hwio = lambda key: _n(sd[key]).transpose(2, 3, 1, 0)
+    for i in range(n_blocks):
+        if f"{prefix}.attns.{i}.0.fn.norm.g" in sd:
+            p[f"attn{i}"] = _attn_to_jax(sd, f"{prefix}.attns.{i}")
+        b = f"{prefix}.blocks.{i}"
+        q = {name: _linear_to_jax(sd, f"{b}.{name}")
+             for name in ("to_style1", "to_noise1", "to_style2", "to_noise2")}
+        q["conv1_weight"] = oihw_to_hwio(f"{b}.conv1.weight")
+        q["conv2_weight"] = oihw_to_hwio(f"{b}.conv2.weight")
+        q["to_rgb"] = {"to_style": _linear_to_jax(sd, f"{b}.to_rgb.to_style"),
+                       "conv_weight": oihw_to_hwio(f"{b}.to_rgb.conv.weight")}
+        p[f"block{i}"] = q
+    return p
+
+
+def _trunk_to_jax(sd: StateDict, prefix: str, cfg: ModelConfig) -> Dict[str, Any]:
+    filters = discriminator_filters(cfg.image_size, cfg.network_capacity, cfg.fmap_max)
+    p: Dict[str, Any] = {}
+    for i in range(len(filters) - 1):
+        b = f"{prefix}.blocks.{i}"
+        q = {"conv_res": _conv_to_jax(sd, f"{b}.conv_res"),
+             "conv1": _conv_to_jax(sd, f"{b}.net.0"),
+             "conv2": _conv_to_jax(sd, f"{b}.net.2")}
+        if f"{b}.downsample.1.weight" in sd:
+            q["conv_down"] = _conv_to_jax(sd, f"{b}.downsample.1")
+        p[f"block{i}"] = q
+        if f"{prefix}.attn_blocks.{i}.0.fn.norm.g" in sd:
+            p[f"attn{i}"] = _attn_to_jax(sd, f"{prefix}.attn_blocks.{i}")
+    p["final_conv"] = _conv_to_jax(sd, f"{prefix}.final_conv")
+    p["fc"] = _flat_linear_to_jax(sd, f"{prefix}.fc", filters[-1])
+    return p
+
+
+def _subtree_to_jax(name: str, sd: StateDict, cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of :func:`_subtree_state_dict`: the port's keys under
+    ``name`` (parameters, or tensors shaped like them such as Adam moments)
+    -> the JAX tree ``name``."""
+    if name in ("S", "SE"):
+        return _mapping_to_jax(sd, name, cfg.style_depth)
+    if name in ("G", "GE"):
+        return _generator_to_jax(sd, name, cfg)
+    if name == "encoder" and cfg.encoder_class is not None:
+        return _debug_encoder_to_jax(sd, name)
+    return _trunk_to_jax(sd, name, cfg)
+
+
+def stylex_state_dict_to_jax(sd: StateDict, cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of :func:`stylex_state_dict_from_jax`: the port's state
+    dict -> the JAX package's tree {'encoder','S','G','D','SE','GE'} and,
+    with quantize layers, 'D_vq' and 'E_vq'."""
+    tree = {name: _subtree_to_jax(name, sd, cfg) for name in ("encoder", "S", "G", "D", "SE", "GE")}
+    for name, prefix in (("D_vq", "D"), ("E_vq", "encoder")):
+        if any(k.startswith(f"{prefix}.quantize_blocks.") for k in sd):
+            tree[name] = _vq_to_jax(sd, prefix)
+    return tree
+
+
+def _masked(tree) -> Dict[str, Any]:
+    """optax's ``MaskedNode`` leaves, as a state dict holds them: the
+    tree's structure with an empty dict at every leaf."""
+    return {k: _masked(v) if isinstance(v, Mapping) else {} for k, v in tree.items()}
+
+
+def _adam_to_jax(opt: torch.optim.Optimizer, named: Dict[str, torch.nn.Parameter],
+                 names, cfg: ModelConfig, masked=()) -> Dict[str, Any]:
+    """One optax ``adam`` state (``chain(scale_by_adam, scale_by_lr)``) in
+    state-dict form from ``opt``'s state over the subtrees ``names``;
+    subtrees in ``masked`` get ``MaskedNode`` leaves. A parameter with no
+    state yet (the optimizer has not stepped) has zero moments, count 0."""
+    mu, nu, count = {}, {}, 0
+    for key, p in named.items():
+        if key.split(".")[0] not in names:
+            continue
+        st = opt.state.get(p)
+        if st:
+            count = int(st["step"])
+        mu[key] = st["exp_avg"] if st else torch.zeros_like(p)
+        nu[key] = st["exp_avg_sq"] if st else torch.zeros_like(p)
+    mu_tree = {name: _subtree_to_jax(name, mu, cfg) for name in names}
+    nu_tree = {name: _subtree_to_jax(name, nu, cfg) for name in names}
+    for name in masked:
+        mu_tree[name] = nu_tree[name] = _masked(_subtree_to_jax(name, named, cfg))
+    if names == ("D",):
+        mu_tree, nu_tree = mu_tree["D"], nu_tree["D"]
+    return {"0": {"count": np.asarray(count, np.int32), "mu": mu_tree, "nu": nu_tree}, "1": {}}
+
+
+def train_state_to_jax(state) -> Dict[str, Any]:
+    """The inverse of :func:`load_train_state_from_jax`: the port's
+    :class:`~stylex_tpu_torch.train.state.TrainState` -> the state-dict
+    form of the JAX package's ``StylExTrainState``, which its
+    ``load_checkpoint`` restores: ``step``, ``params``, ``ema_params``, the
+    G optimizer state (one Adam, or the NEW arch's ``multi_transform`` over
+    the 'enc' and 'gen' labels with the other label's leaves masked), the D
+    optimizer state and ``pl_mean``."""
+    from stylex_tpu_torch.config import Arch
+
+    cfg = state.model.cfg
+    tree = stylex_state_dict_to_jax(state.model.state_dict(), cfg)
+    named = dict(state.model.named_parameters())
+    if cfg.arch == Arch.NEW:
+        g_opt_state = {"inner_states": {
+            "enc": {"inner_state": _adam_to_jax(state.g_opt, named, ("encoder",), cfg,
+                                                masked=("S", "G"))},
+            "gen": {"inner_state": _adam_to_jax(state.g_opt, named, ("S", "G"), cfg,
+                                                masked=("encoder",))}}}
+    else:
+        g_opt_state = _adam_to_jax(state.g_opt, named, ("encoder", "S", "G"), cfg)
+    return {
+        "step": np.asarray(state.step, np.int32),
+        "params": {k: v for k, v in tree.items() if k not in ("SE", "GE")},
+        "ema_params": {"SE": tree["SE"], "GE": tree["GE"]},
+        "g_opt_state": g_opt_state,
+        "d_opt_state": _adam_to_jax(state.d_opt, named, ("D",), cfg),
+        "pl_mean": np.asarray(float(state.pl_mean), np.float32),
+    }
 
 
 def _convbn(sd: StateDict, conv_key: str, bn_key: str, params: Mapping, stats: Mapping) -> None:
@@ -310,6 +556,67 @@ def classifier_state_dict_from_jax(variables: Mapping[str, Any], kind: str) -> S
     return sd
 
 
+def _convbn_to_jax(sd: StateDict, conv_key: str, bn_key: str):
+    return ({"conv": {"kernel": _n(sd[f"{conv_key}.weight"]).transpose(2, 3, 1, 0)},
+             "bn": {"scale": _n(sd[f"{bn_key}.weight"]), "bias": _n(sd[f"{bn_key}.bias"])}},
+            {"bn": {"mean": _n(sd[f"{bn_key}.running_mean"]),
+                    "var": _n(sd[f"{bn_key}.running_var"])}})
+
+
+def classifier_tree_from_state_dict(sd: Mapping[str, torch.Tensor], kind: str) -> Dict[str, Any]:
+    """The inverse of :func:`classifier_state_dict_from_jax`: a
+    torchvision-layout ResNet-18 / MobileNetV2 state dict -> the JAX
+    package's flax ``{'params', 'batch_stats'}`` (float32 numpy leaves), as
+    its ``convert_resnet18_state_dict`` / ``convert_mobilenet_v2_state_dict``
+    build them. ``num_batches_tracked`` has no flax counterpart."""
+    p: Dict[str, Any] = {}
+    s: Dict[str, Any] = {}
+    if kind == "resnet":
+        p["stem"], s["stem"] = _convbn_to_jax(sd, "conv1", "bn1")
+        for layer in range(1, 5):
+            for blk in range(2):
+                name, prefix = f"layer{layer}_{blk}", f"layer{layer}.{blk}"
+                p[name], s[name] = {}, {}
+                for j in (1, 2):
+                    p[name][f"conv{j}"], s[name][f"conv{j}"] = _convbn_to_jax(
+                        sd, f"{prefix}.conv{j}", f"{prefix}.bn{j}")
+                if f"{prefix}.downsample.0.weight" in sd:
+                    p[name]["downsample"], s[name]["downsample"] = _convbn_to_jax(
+                        sd, f"{prefix}.downsample.0", f"{prefix}.downsample.1")
+        p["fc"] = _linear_to_jax(sd, "fc")
+    elif kind == "mobilenet":
+        p["stem"], s["stem"] = _convbn_to_jax(sd, "features.0.0", "features.0.1")
+        idx = 0
+        for t, _, n, _ in _MBV2_PLAN:
+            for _ in range(n):
+                prefix, name = f"features.{idx + 1}.conv", f"block{idx}"
+                p[name], s[name] = {}, {}
+                k = 0
+                if t != 1:
+                    p[name]["expand"], s[name]["expand"] = _convbn_to_jax(
+                        sd, f"{prefix}.0.0", f"{prefix}.0.1")
+                    k = 1
+                p[name]["depthwise"], s[name]["depthwise"] = _convbn_to_jax(
+                    sd, f"{prefix}.{k}.0", f"{prefix}.{k}.1")
+                p[name]["project"], s[name]["project"] = _convbn_to_jax(
+                    sd, f"{prefix}.{k + 1}", f"{prefix}.{k + 2}")
+                idx += 1
+        p["head"], s["head"] = _convbn_to_jax(sd, "features.18.0", "features.18.1")
+        p["classifier"] = _linear_to_jax(sd, "classifier.1")
+    else:
+        raise ValueError(f"unknown classifier kind {kind!r}")
+    return {"params": p, "batch_stats": s}
+
+
+def lpips_tree_from_params(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`lpips_params_from_jax`: the port's LPIPS
+    params -> the JAX package's tree ``{'conv{i}': {'kernel' HWIO, 'bias'},
+    'lin{i}'}``."""
+    return {k: ({"kernel": _n(v["weight"]).transpose(2, 3, 1, 0), "bias": _n(v["bias"])}
+                if k.startswith("conv") else _n(v))
+            for k, v in params.items()}
+
+
 def inception_state_dict_from_jax(variables: Mapping[str, Any]) -> StateDict:
     """flax ``{'params', 'batch_stats'}`` of the JAX package's
     ``InceptionV3FID`` (numpy leaves) -> a torchvision-layout state dict:
@@ -332,6 +639,30 @@ def inception_state_dict_from_jax(variables: Mapping[str, Any]) -> StateDict:
     for key in [k for k in sd if k.endswith(".bn.running_var")]:
         sd[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return sd
+
+
+def inception_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`inception_state_dict_from_jax`: a torchvision
+    / pytorch_fid ``inception_v3`` state dict -> the JAX package's flax
+    ``{'params', 'batch_stats'}`` of ``InceptionV3FID``, as its
+    ``convert_inception_state_dict`` builds it (``fc``, ``AuxLogits`` and
+    ``num_batches_tracked`` dropped)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    names = {("conv", "weight"): (params, "kernel"), ("bn", "weight"): (params, "scale"),
+             ("bn", "bias"): (params, "bias"), ("bn", "running_mean"): (stats, "mean"),
+             ("bn", "running_var"): (stats, "var")}
+    for key, val in sd.items():
+        parts = key.split(".")
+        *path, unit, param = parts
+        if parts[0] in ("fc", "AuxLogits") or (unit, param) not in names:
+            continue
+        tree, leaf = names[(unit, param)]
+        for part in path + [unit]:
+            tree = tree.setdefault(part, {})
+        v = val if torch.is_tensor(val) else torch.from_numpy(np.asarray(val))
+        tree[leaf] = _n(v).transpose(2, 3, 1, 0) if leaf == "kernel" else _n(v)
+    return {"params": params, "batch_stats": stats}
 
 
 def load_reference_checkpoint(path: str) -> StateDict:

@@ -228,15 +228,21 @@ def pool3_features_fn(net: InceptionV3FID, resize_to: int = 299):
 
 
 def load_inception_variables(path: str) -> Dict[str, torch.Tensor]:
-    """The state dict of a torchvision or pytorch_fid ``inception_v3``
-    weights file, converted for :class:`InceptionV3FID`. Raises when the
-    file is missing or is not such a state dict. Ingested ``.msgpack`` trees
-    are not read yet."""
+    """The state dict for :class:`InceptionV3FID` of an ingested ``.msgpack``
+    tree (the JAX package's flax variables, as ``stylex_tpu_torch.ingest
+    inception`` writes them) or of a torchvision or pytorch_fid
+    ``inception_v3`` weights file. Raises when the file is missing or holds
+    no such weights."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"Inception weights not found: {path}")
     if str(path).endswith((".msgpack", ".mp")):
-        raise ValueError(f"{path}: reading an ingested .msgpack tree is not ported yet; "
-                         "pass a torchvision-layout inception_v3 state dict (.pt)")
+        from stylex_tpu_torch.models.convert import inception_state_dict_from_jax
+        from stylex_tpu_torch.utils import flax_msgpack
+
+        tree = flax_msgpack.load(path)
+        if not isinstance(tree, dict) or "params" not in tree or "batch_stats" not in tree:
+            raise ValueError(f"{path} is not an ingested Inception tree")
+        return inception_state_dict_from_jax(tree)
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(sd, dict):
         raise ValueError(f"{path} does not hold a state dict")

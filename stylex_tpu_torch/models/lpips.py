@@ -139,9 +139,19 @@ def convert_lpips_state_dict(sd: Dict[str, torch.Tensor]) -> Params:
 
 
 def load_lpips_params(path: str, device=None) -> Params:
-    """LPIPS-alex weights from a local torch state dict; raises if the file
+    """LPIPS-alex weights from an ingested ``.msgpack`` tree (the JAX
+    package's layout, as ``stylex_tpu_torch.ingest lpips`` writes it) or a
+    local torch ``lpips.LPIPS(net='alex')`` state dict; raises if the file
     is missing or holds no AlexNet backbone."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"LPIPS weights not found: {path}")
+    if str(path).endswith((".msgpack", ".mp")):
+        from stylex_tpu_torch.models.convert import lpips_params_from_jax
+        from stylex_tpu_torch.utils import flax_msgpack
+
+        tree = flax_msgpack.load(path)
+        if not isinstance(tree, dict) or not any(str(k).startswith("conv") for k in tree):
+            raise ValueError(f"{path} is not an ingested LPIPS tree")
+        return lpips_params_to(lpips_params_from_jax(tree), device or "cpu")
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return lpips_params_to(convert_lpips_state_dict(sd), device or "cpu")

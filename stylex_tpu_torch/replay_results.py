@@ -10,8 +10,9 @@ no StyleSpace re-sweep. Given a model it also renders, for the top
 ``--visualize-top`` styles, the by-effect panel (``style_<d>_<s>.png``,
 when enough images pass ``--panel-threshold``) and the by-distance panel
 (``style_<d>_<s>_by_distance.png``). The model is either the port's own
-checkpoint (``--name`` under ``--base-dir``/``--models-dir``, through
-``Trainer.load``) or a reference-layout ``.pt`` with its ``.config.json``
+checkpoint (``--name`` under ``--base-dir``/``--models-dir``, its ``.pt`` or the JAX
+package's ``.ckpt``, through ``Trainer.load(inference=True)``) or a
+reference-layout ``.pt`` or JAX ``.ckpt`` with its ``.config.json``
 (``--checkpoint`` and ``--config``, as ``run_attfind`` takes them). It runs
 on the GPU unless ``--device cpu`` is given.
 """
@@ -23,6 +24,7 @@ import json
 from pathlib import Path
 
 import numpy as np
+import torch
 
 __all__ = ["main", "add_model_args", "load_model"]
 
@@ -30,37 +32,42 @@ __all__ = ["main", "add_model_args", "load_model"]
 def add_model_args(p: argparse.ArgumentParser) -> None:
     """The flags that name a model (``--name``, or ``--checkpoint`` with
     ``--config``) and its classifier."""
-    p.add_argument("--name", default=None, help="the port's model name under --models-dir")
+    p.add_argument("--name", default=None,
+                   help="the model's name under --models-dir: its latest (or --load-from) "
+                        "model_<n>.pt or the JAX package's model_<n>.ckpt")
     p.add_argument("--base-dir", default="./")
     p.add_argument("--models-dir", default="models")
     p.add_argument("--load-from", type=int, default=-1)
     p.add_argument("--checkpoint", default=None,
-                   help="a reference-layout StylEx .pt, with --config")
+                   help="a reference-layout StylEx .pt or a JAX .ckpt, with --config")
     p.add_argument("--config", default=None, help="the checkpoint's .config.json")
     p.add_argument("--classifier-name", default="resnet")
     p.add_argument("--classifier-path", default=None)
     p.add_argument("--device", default=None, help="default: the GPU")
 
 
-def load_model(args):
-    """(StylEx in eval mode, classify function) from the flags of
-    :func:`add_model_args`; None when they name no model."""
+def load_model(args, ship_ema: bool = True, param_dtype=None):
+    """(StylEx in eval mode, its ClassifierBundle) from the flags of
+    :func:`add_model_args`, the model's float32 weights cast to
+    ``param_dtype``; None when they name no model. ``--name`` loads through
+    ``Trainer.load(inference=True)``, which places only the parameters on
+    the device (the EMA copies only with ``ship_ema``)."""
     if args.checkpoint is not None:
         if args.config is None:
             raise SystemExit("--checkpoint needs --config (the model's .config.json)")
         from stylex_tpu_torch.config import ModelConfig
         from stylex_tpu_torch.device import resolve_device
         from stylex_tpu_torch.models import build_classifier
-        from stylex_tpu_torch.models.convert import load_reference_checkpoint
         from stylex_tpu_torch.models.stylex import StylEx
+        from stylex_tpu_torch.utils.checkpoint import read_model_weights
 
         device = resolve_device(args.device)
         cfg = ModelConfig.from_json(Path(args.config).read_text())
         model = StylEx(cfg)
-        model.load_state_dict(load_reference_checkpoint(args.checkpoint))
+        model.load_state_dict(read_model_weights(args.checkpoint, cfg))
         clf = build_classifier(args.classifier_name, cfg.image_size, cfg.num_classes,
                                checkpoint_path=args.classifier_path, device=device)
-        return model.to(device).eval(), clf.classify_images
+        return model.to(param_dtype or torch.float32).to(device).eval(), clf
     if args.name is None:
         return None
     from stylex_tpu_torch.train.trainer import Trainer
@@ -68,8 +75,8 @@ def load_model(args):
     trainer = Trainer(name=args.name, base_dir=args.base_dir, models_dir=args.models_dir,
                       classifier_name=args.classifier_name,
                       classifier_path=args.classifier_path, device=args.device)
-    trainer.load(args.load_from)
-    return trainer.state.model.eval(), trainer.classifier.classify_images
+    trainer.load(args.load_from, inference=True, ship_ema=ship_ema, param_dtype=param_dtype)
+    return trainer.state.model.eval(), trainer.classifier
 
 
 def main(argv=None) -> None:
@@ -140,7 +147,7 @@ def main(argv=None) -> None:
 
     from stylex_tpu_torch.attfind import visualize_style, visualize_style_by_distance_in_s
 
-    model, clf_fn = loaded
+    model, clf_fn = loaded[0], loaded[1].classify_images
     rendered = 0
     for direction, sindex in ranked[: args.visualize_top]:
         panel = visualize_style(model, clf_fn, records, sindex, direction,

@@ -1,14 +1,17 @@
 """AttFind CLI: extraction, ranking and records for a trained StylEx.
 
-    python -m stylex_tpu_torch.run_attfind \\
-        --checkpoint models/plants/model_100.pt \\
-        --config models/plants/.config.json \\
-        --classifier-name mobilenet --classifier-path mobilenet_plants.pt \\
+    python -m stylex_tpu_torch.run_attfind --name plants --load-from 100 \\
+        --classifier-name mobilenet --classifier-path mobilenet_plants.msgpack \\
         --data ./data/plants --num-images 250 --dtype bfloat16
 
-Loads a reference-layout StylEx checkpoint (``{'StylEx': state_dict}``) and
-a torchvision-layout classifier state_dict, runs the StyleSpace sweep on the
-GPU (``--device cpu`` runs it on the host), writes
+The model is named as the JAX package's CLI names it: ``--name`` under
+``--base-dir``/``--models-dir``, its latest (or ``--load-from``) checkpoint,
+the port's ``model_<n>.pt`` or the JAX package's ``model_<n>.ckpt``, loaded
+by ``Trainer.load(inference=True, ship_ema=False, param_dtype=<--dtype>)``
+(the sweep uses the live nets only); or ``--checkpoint`` (a reference-layout
+``.pt`` or a JAX ``.ckpt``) with its ``--config``. The classifier is a
+torchvision-layout state dict or an ingested ``.msgpack``. The StyleSpace
+sweep runs on the GPU (``--device cpu`` runs it on the host), writes
 ``style_change_records.hdf5`` (the reference schema; ``.npz`` with the
 same datasets where h5py is not installed) and ``top_styles.json``
 to ``--results-folder``, and prints the ranked (direction, sindex) pairs.
@@ -30,14 +33,12 @@ import torch
 
 
 def main(argv=None) -> None:
+    from stylex_tpu_torch.replay_results import add_model_args, load_model
+
     p = argparse.ArgumentParser(description="StylEx AttFind attribute discovery (PyTorch)")
-    p.add_argument("--checkpoint", required=True, help="reference-layout StylEx .pt")
-    p.add_argument("--config", required=True, help="the model's .config.json")
+    add_model_args(p)
     p.add_argument("--data", default="./data")
     p.add_argument("--dataset-name", default=None, help="'synthetic' for generated images")
-    p.add_argument("--classifier-name", default="resnet", choices=["resnet", "mobilenet"])
-    p.add_argument("--classifier-path", default=None,
-                   help="torchvision-layout state_dict of the classifier")
     p.add_argument("--num-images", type=int, default=250)
     p.add_argument("--num-indices", type=int, default=5)
     p.add_argument("--shift-size", type=float, default=1.0)
@@ -49,7 +50,6 @@ def main(argv=None) -> None:
                    help="use the flat full-recompute sweep")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
                    help="sweep compute dtype; records are float32 either way")
-    p.add_argument("--device", default=None, help="default: the GPU")
     p.add_argument("--results-folder", default="./attfind_results")
     p.add_argument("--visualize-top", type=int, default=0,
                    help="render counterfactual panels for the top-N styles")
@@ -67,22 +67,18 @@ def main(argv=None) -> None:
         visualize_style,
         warn_visualize_top,
     )
-    from stylex_tpu_torch.config import ModelConfig
     from stylex_tpu_torch.data import FolderDataset, SyntheticImageDataset
-    from stylex_tpu_torch.device import resolve_device, resolve_dtype
-    from stylex_tpu_torch.models import build_classifier
-    from stylex_tpu_torch.models.convert import load_reference_checkpoint
-    from stylex_tpu_torch.models.stylex import StylEx
+    from stylex_tpu_torch.device import resolve_dtype
     from stylex_tpu_torch.ops.latents import image_noise
 
-    device = resolve_device(args.device)
     dtype = resolve_dtype(args.dtype)
-    cfg = ModelConfig.from_json(Path(args.config).read_text())
-    model = StylEx(cfg)
-    model.load_state_dict(load_reference_checkpoint(args.checkpoint))
-    model = model.to(device, dtype).eval()
-    clf = build_classifier(args.classifier_name, cfg.image_size, cfg.num_classes,
-                           checkpoint_path=args.classifier_path, device=device).to(dtype)
+    loaded = load_model(args, ship_ema=False, param_dtype=dtype)
+    if loaded is None:
+        p.error("a model is needed: --name, or --checkpoint with --config")
+    model, clf = loaded
+    clf.to(dtype)
+    cfg = model.cfg
+    device = next(model.G.parameters()).device
 
     if args.dataset_name == "synthetic":
         ds = SyntheticImageDataset(args.num_images, cfg.image_size)

@@ -4,7 +4,9 @@ It owns model and optimizer construction, the data source (an image folder,
 MNIST one-vs-all with class-rebalanced sampling, or the synthetic set, with
 the reference's automatic augmentation probability for small datasets),
 the step's random draws (a ``torch.Generator`` on the device, seeded),
-checkpoints with the model's ``.config.json``, the save, evaluate and FID
+checkpoints with the model's ``.config.json`` (the port's ``.pt`` or the
+JAX package's ``.ckpt``, in full or for inference), TensorBoard scalars
+under ``tensorboard_dir``, the save, evaluate and FID
 cadence, evaluation grids, slerp interpolation GIFs, and the NaN fault
 path: non-finite losses reload the latest checkpoint and raise
 :class:`NanException`, which the CLI retries.
@@ -56,9 +58,10 @@ from stylex_tpu_torch.ops.latents import (
 from stylex_tpu_torch.train.state import TrainState, create_train_state
 from stylex_tpu_torch.train.steps import StepDraws, draw_step, make_train_step
 from stylex_tpu_torch.utils.checkpoint import (
-    checkpoint_path,
+    find_checkpoint,
     latest_checkpoint,
-    load_checkpoint,
+    load_any_checkpoint,
+    load_checkpoint_inference,
     save_checkpoint,
 )
 from stylex_tpu_torch.utils.image import make_grid, save_image_grid, to_uint8
@@ -77,7 +80,8 @@ class Trainer:
                  model_cfg: Optional[ModelConfig] = None,
                  train_cfg: Optional[TrainConfig] = None, classifier_name: str = "resnet",
                  classifier_path: Optional[str] = None, lpips_path: Optional[str] = None,
-                 seed: int = 42, clear_fid_cache: bool = False, device=None):
+                 seed: int = 42, clear_fid_cache: bool = False,
+                 tensorboard_dir: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         self.name = name
         base = Path(base_dir)
@@ -102,13 +106,15 @@ class Trainer:
             self.lpips_params = init_lpips_params(device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.state: Optional[TrainState] = None
+        self._inference_only = False
         self._step_fn = None
         self.loader: Optional[StepBatchLoader] = None
         self.dataset = None
         self.aug_prob = self.train_cfg.aug_prob
         self.clear_fid_cache = clear_fid_cache
         self.last_fid: Optional[float] = None
-        self.logger = MetricLogger(str(self.results_dir / name / "metrics.csv"))
+        self.logger = MetricLogger(str(self.results_dir / name / "metrics.csv"),
+                                   tensorboard_dir=tensorboard_dir, name=name)
         self.init_folders()
 
     # ------------------------------------------------------------------ setup
@@ -173,12 +179,10 @@ class Trainer:
             weights = balanced_class_weights(self.dataset.targets, self.model_cfg.num_classes)
         elif dataset_name == "synthetic":
             self.dataset = SyntheticImageDataset(512, self.model_cfg.image_size)
-        elif dataset_name is None:
+        else:  # any other name (or none) is a folder of images, as in the JAX package
             self.dataset = FolderDataset(folder, self.model_cfg.image_size,
                                          transparent=self.model_cfg.transparent,
                                          aug_prob=tc.dataset_aug_prob, seed=self.seed)
-        else:
-            raise NotImplementedError(f"dataset {dataset_name!r} is not ported yet")
         kwargs = {} if tc.num_workers is None else {"num_workers": tc.num_workers}
         if self.loader is not None:
             self.loader.close()
@@ -192,10 +196,11 @@ class Trainer:
                 self._build_step_fn()
 
     def close(self) -> None:
-        """Stop the loader's threads."""
+        """Stop the loader's threads and close the TensorBoard file."""
         if self.loader is not None:
             self.loader.close()
             self.loader = None
+        self.logger.close()
 
     # ------------------------------------------------------------------ train
     def _top_k(self, step: int) -> int:
@@ -209,6 +214,9 @@ class Trainer:
         defaults to the trainer's generator. Returns the step's metrics."""
         if self.loader is None:
             raise RuntimeError("call set_data_src before train")
+        if self._inference_only:
+            raise RuntimeError("Trainer.load(inference=True) placed only the parameters on the "
+                               "device and no optimizer state; call load(num) before train()")
         self.init_stylex()
         tc = self.train_cfg
         step = self.steps
@@ -242,19 +250,39 @@ class Trainer:
         return save_checkpoint(str(self.models_dir), self.name, num, self.state,
                                extra={"version": __version__})
 
-    def load(self, num: int = -1) -> None:
-        """Restore checkpoint ``num`` (the latest for -1; none found: keep
-        the fresh model)."""
+    def load(self, num: int = -1, inference: bool = False, ship_ema: bool = True,
+             param_dtype: Optional[torch.dtype] = None) -> None:
+        """Restore checkpoint ``num``, the port's ``model_<num>.pt`` or the
+        JAX package's ``model_<num>.ckpt`` (the latest of either for -1; none
+        found: keep the fresh model). A stored step of 0 becomes ``num *
+        save_every``, as the reference counts it.
+
+        ``inference=True`` builds the model on the host, loads it there and
+        places only the parameters on the device (cast to ``param_dtype``
+        where float32; the EMA copies too when ``ship_ema``), with no
+        optimizer state: :meth:`train` then raises until a full load."""
         self.load_config()
-        self.init_stylex()
         if num == -1:
             found = latest_checkpoint(str(self.models_dir), self.name)
             if found is None:
+                self.init_stylex()
                 return
-            path = found[1]
+            num, path = found
         else:
-            path = str(checkpoint_path(str(self.models_dir), self.name, num))
-        load_checkpoint(path, self.state)
+            path = str(find_checkpoint(str(self.models_dir), self.name, num))
+        if inference:
+            model = build_stylex(self.model_cfg, seed=self.seed, device="cpu")
+            self.state = create_train_state(model, self.model_cfg, self.train_cfg)
+            load_checkpoint_inference(path, self.state, ship_ema=ship_ema,
+                                      param_dtype=param_dtype, device=self.device)
+        else:
+            if self._inference_only:
+                self.state = None
+            self.init_stylex()
+            load_any_checkpoint(path, self.state)
+        self._inference_only = inference
+        if self.state.step == 0:
+            self.state.step = num * self.train_cfg.save_every
 
     # ------------------------------------------------------------ evaluation
     @torch.no_grad()
@@ -430,7 +458,9 @@ class Trainer:
 
 
 class ModelLoader:
-    """A checkpoint for inference: z -> w -> images with the live nets."""
+    """A checkpoint (the port's ``.pt`` or the JAX package's ``.ckpt``) for
+    inference: z -> w -> images with the live nets, loaded by
+    ``Trainer.load(inference=True)``."""
 
     def __init__(self, base_dir: str = "./", name: str = "default", load_from: int = -1,
                  model_cfg: Optional[ModelConfig] = None, classifier_name: str = "resnet",
@@ -438,7 +468,7 @@ class ModelLoader:
         self.trainer = Trainer(name=name, base_dir=base_dir, model_cfg=model_cfg,
                                classifier_name=classifier_name,
                                classifier_path=classifier_path, device=device)
-        self.trainer.load(load_from)
+        self.trainer.load(load_from, inference=True)
 
     @torch.no_grad()
     def noise_to_styles(self, noise: torch.Tensor,

@@ -194,7 +194,7 @@ def main(argv=None) -> None:
     loaded = load_model(args)
     if loaded is None:
         p.error("a model is needed: --name, or --checkpoint with --config")
-    model, clf_fn = loaded
+    model, clf_fn = loaded[0], loaded[1].classify_images
     studies = generate_user_study(
         model, clf_fn, load_records(args.records), args.out,
         num_studies=args.num_studies, num_indices=args.num_indices,

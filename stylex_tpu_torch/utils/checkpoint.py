@@ -1,4 +1,5 @@
-"""Checkpoint and resume of the whole train state.
+"""Checkpoint and resume of the whole train state, in the port's format or
+the JAX package's.
 
 ``<models_dir>/<name>/model_<num>.pt`` beside the model's ``.config.json``,
 as the reference lays them out. The file is a ``torch.save`` dict:
@@ -6,9 +7,17 @@ as the reference lays them out. The file is a ``torch.save`` dict:
 nets and EMA copies), so the reference's loaders and the port's
 :func:`~stylex_tpu_torch.models.convert.load_reference_checkpoint` read it;
 ``'g_opt'`` and ``'d_opt'`` the Adam states, ``'step'`` and ``'pl_mean'``
-the counters. A file is written under a temporary name and renamed, so a
-reader never sees half of one. Reading JAX msgpack checkpoints is not
-ported yet.
+the counters.
+
+``model_<num>.ckpt`` is the JAX package's checkpoint: flax's msgpack of
+``{"state": <StylExTrainState as a state dict>, ...}``, read and written by
+:mod:`~stylex_tpu_torch.utils.flax_msgpack` and mapped by
+:func:`~stylex_tpu_torch.models.convert.load_train_state_from_jax` and
+:func:`~stylex_tpu_torch.models.convert.train_state_to_jax`. Either suffix
+loads (:func:`load_any_checkpoint`, :func:`load_checkpoint_inference`).
+
+A file is written under a temporary name and renamed, so a reader never
+sees half of one.
 """
 
 from __future__ import annotations
@@ -20,13 +29,28 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["save_checkpoint", "load_checkpoint", "latest_checkpoint", "checkpoint_path"]
+from stylex_tpu_torch.utils import flax_msgpack
 
-_CKPT_RE = re.compile(r"model_(\d+)\.pt$")
+__all__ = [
+    "save_checkpoint",
+    "load_checkpoint",
+    "save_jax_checkpoint",
+    "load_jax_checkpoint",
+    "load_any_checkpoint",
+    "load_checkpoint_inference",
+    "latest_checkpoint",
+    "find_checkpoint",
+    "checkpoint_path",
+    "read_model_weights",
+]
+
+_CKPT_RE = re.compile(r"model_(\d+)\.(pt|ckpt)$")
+# on a tie of numbers the port's own file wins
+_SUFFIX_RANK = {"pt": 1, "ckpt": 0}
 
 
-def checkpoint_path(models_dir: str, name: str, num: int) -> Path:
-    return Path(models_dir) / name / f"model_{num}.pt"
+def checkpoint_path(models_dir: str, name: str, num: int, suffix: str = ".pt") -> Path:
+    return Path(models_dir) / name / f"model_{num}{suffix}"
 
 
 def save_checkpoint(models_dir: str, name: str, num: int, state,
@@ -50,8 +74,8 @@ def save_checkpoint(models_dir: str, name: str, num: int, state,
 
 
 def load_checkpoint(path: str, state) -> None:
-    """Restore checkpoint ``path`` into ``state`` in place (on the state's
-    device)."""
+    """Restore the port's checkpoint ``path`` into ``state`` in place (on the
+    state's device)."""
     payload = torch.load(path, map_location=state.device, weights_only=True)
     state.model.load_state_dict(payload["StylEx"])
     state.g_opt.load_state_dict(payload["g_opt"])
@@ -60,10 +84,109 @@ def load_checkpoint(path: str, state) -> None:
     state.pl_mean = torch.tensor(float(payload["pl_mean"]), device=state.device)
 
 
+def save_jax_checkpoint(models_dir: str, name: str, num: int, state,
+                        extra: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``state`` as the JAX package's ``model_<num>.ckpt``, which its
+    ``load_checkpoint`` restores into a ``StylExTrainState`` of the same
+    config; returns its path."""
+    from stylex_tpu_torch.models.convert import train_state_to_jax
+
+    path = checkpoint_path(models_dir, name, num, ".ckpt")
+    flax_msgpack.dump({"state": train_state_to_jax(state), **(extra or {})}, path)
+    return str(path)
+
+
+def load_jax_checkpoint(path: str, state) -> None:
+    """Restore the JAX package's checkpoint ``path`` into ``state`` in place:
+    live and EMA parameters, the quantize layers' buffers, both Adam states
+    (per label in the NEW arch), ``step`` and ``pl_mean``. The file is read
+    once; each leaf is copied once, into place."""
+    from stylex_tpu_torch.models.convert import load_train_state_from_jax
+
+    load_train_state_from_jax(flax_msgpack.load(path)["state"], state)
+
+
+def load_any_checkpoint(path: str, state) -> None:
+    """:func:`load_jax_checkpoint` for a ``.ckpt``, else
+    :func:`load_checkpoint`."""
+    (load_jax_checkpoint if str(path).endswith(".ckpt") else load_checkpoint)(path, state)
+
+
+def _jax_model_weights(state_tree, cfg) -> Dict[str, torch.Tensor]:
+    from stylex_tpu_torch.models.convert import stylex_state_dict_from_jax
+
+    return stylex_state_dict_from_jax({**state_tree["params"], **state_tree["ema_params"]}, cfg)
+
+
+def read_model_weights(path: str, cfg) -> Dict[str, torch.Tensor]:
+    """The StylEx state dict (on the host) of a JAX ``.ckpt`` or of a
+    reference-layout or port ``.pt``."""
+    if str(path).endswith(".ckpt"):
+        return _jax_model_weights(flax_msgpack.load(path)["state"], cfg)
+    from stylex_tpu_torch.models.convert import load_reference_checkpoint
+
+    return load_reference_checkpoint(path)
+
+
+def _inference_payload(path: str, cfg) -> Tuple[Dict[str, torch.Tensor], int, float]:
+    """(the model's state dict on the host, step, pl_mean) of a checkpoint of
+    either suffix; optimizer states are not read into tensors."""
+    if str(path).endswith(".ckpt"):
+        st = flax_msgpack.load(path)["state"]
+        return _jax_model_weights(st, cfg), int(st["step"]), float(st["pl_mean"])
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return payload["StylEx"], int(payload["step"]), float(payload["pl_mean"])
+
+
+@torch.no_grad()
+def load_checkpoint_inference(path: str, state, ship_ema: bool = True,
+                              param_dtype: Optional[torch.dtype] = None, device=None) -> None:
+    """Like :func:`load_any_checkpoint`, for a model that only infers: the
+    parameters and buffers are loaded into ``state.model`` where it lies (the
+    host, for the least device memory), cast there to ``param_dtype`` where
+    they are float32, and only then placed on ``device``; with
+    ``ship_ema=False`` the EMA copies stay on the host in float32. The
+    optimizers keep no state, and none is built on the device. AttFind
+    sweeps the live nets only, so it loads with ``ship_ema=False``.
+    ``device``: the GPU unless ``'cpu'``."""
+    from stylex_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    sd, step, pl_mean = _inference_payload(path, state.model.cfg)
+    state.model.load_state_dict(sd)
+    del sd
+    state.g_opt.state.clear()
+    state.d_opt.state.clear()
+    dtype = param_dtype or torch.float32
+    for name, module in state.model.named_children():
+        if name in ("SE", "GE") and not ship_ema:
+            continue
+        module.to(dtype).to(device)
+    state.step = step
+    state.pl_mean = torch.tensor(pl_mean, device=device)
+
+
+def find_checkpoint(models_dir: str, name: str, num: int) -> Path:
+    """Checkpoint ``num`` of either suffix; the port's ``.pt`` where both
+    exist. Raises ``FileNotFoundError`` where neither does."""
+    for suffix in (".pt", ".ckpt"):
+        path = checkpoint_path(models_dir, name, num, suffix)
+        if path.exists():
+            return path
+    raise FileNotFoundError(f"no model_{num}.pt or model_{num}.ckpt under "
+                            f"{Path(models_dir) / name}")
+
+
 def latest_checkpoint(models_dir: str, name: str) -> Optional[Tuple[int, str]]:
-    """The highest-numbered checkpoint as (num, path), or None."""
+    """The highest-numbered checkpoint as (num, path), or None. Both the
+    port's ``model_<n>.pt`` and the JAX package's ``model_<n>.ckpt`` count;
+    where both have the highest number, the ``.pt`` wins."""
     d = Path(models_dir) / name
     if not d.exists():
         return None
-    found = [(int(m.group(1)), str(f)) for f in d.iterdir() if (m := _CKPT_RE.search(f.name))]
-    return max(found) if found else None
+    found = [(int(m.group(1)), _SUFFIX_RANK[m.group(2)], str(f))
+             for f in d.iterdir() if (m := _CKPT_RE.search(f.name))]
+    if not found:
+        return None
+    num, _, path = max(found)
+    return num, path

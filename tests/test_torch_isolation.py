@@ -1,7 +1,8 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-default-device entry points refuse to run without a GPU, and its kernel
-wrappers take the plain versions on CPU tensors without touching the CUDA
-build."""
+"""The port stands alone: it imports neither JAX, flax, msgpack, ml_dtypes
+nor the JAX package (its codec of flax's msgpack format works with those
+hidden), its default-device entry points refuse to run without a GPU, and
+its kernel wrappers take the plain versions on CPU tensors without
+touching the CUDA build."""
 
 import json
 import os
@@ -36,7 +37,7 @@ def test_importing_every_module_loads_no_jax():
         "import importlib, json, sys\n"
         f"for name in {_module_names()!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'stylex_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'stylex_tpu', 'msgpack', 'ml_dtypes'))\n"
         "print(json.dumps(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -45,12 +46,16 @@ def test_importing_every_module_loads_no_jax():
                          env=env, cwd=str(ROOT), timeout=300)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(_module_names()) >= 15
+    names = _module_names()
+    assert len(names) >= 15
+    for new in ("utils.flax_msgpack", "ingest", "run_counterfactual", "train_classifier",
+                "train.classifier_training", "data.labeled", "data.download"):
+        assert f"stylex_tpu_torch.{new}" in names, new
 
 
 def test_sources_name_no_jax_import():
-    pattern = re.compile(r"^\s*(import\s+(jax|flax|stylex_tpu)\b|from\s+(jax|flax|stylex_tpu)[\s.])",
-                         re.M)
+    pattern = re.compile(r"^\s*(import\s+(jax|flax|stylex_tpu|msgpack|ml_dtypes)\b|"
+                         r"from\s+(jax|flax|stylex_tpu|msgpack|ml_dtypes)[\s.])", re.M)
     for path in PKG.rglob("*.py"):
         assert not pattern.search(path.read_text()), path
     assert not pattern.search((ROOT / "chip_smoke.py").read_text())
@@ -83,6 +88,88 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     trainer = Trainer(base_dir=str(tmp_path), model_cfg=TINY, classifier_name="mobilenet",
                       device="cpu")
     assert trainer.device == torch.device("cpu")
+
+
+def test_flax_msgpack_codec_needs_no_msgpack(tmp_path):
+    """With msgpack, flax, jax and ml_dtypes unimportable, the codec reads a
+    file that flax wrote (bfloat16 leaf included) and writes one that flax
+    reads back."""
+    from flax import serialization
+
+    import jax.numpy as jnp
+
+    tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3), "step": np.asarray(3, np.int32),
+            "bf": jnp.asarray([1.5, -2.0], jnp.bfloat16), "masked": {}}
+    (tmp_path / "in.msgpack").write_bytes(serialization.msgpack_serialize(tree))
+    code = (
+        "import sys\n"
+        "for m in ('msgpack', 'flax', 'jax', 'ml_dtypes'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "from stylex_tpu_torch.utils import flax_msgpack as fm\n"
+        f"t = fm.load({str(tmp_path / 'in.msgpack')!r})\n"
+        "assert t['w'].tolist() == [[0, 1, 2], [3, 4, 5]] and int(t['step']) == 3\n"
+        "assert t['bf'].dtype == torch.bfloat16 and t['bf'].tolist() == [1.5, -2.0]\n"
+        "assert t['masked'] == {}\n"
+        "t['w'] = t['w'] * 2\n"
+        f"fm.dump(t, {str(tmp_path / 'out.msgpack')!r})\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         cwd=str(ROOT), timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr
+    back = serialization.msgpack_restore((tmp_path / "out.msgpack").read_bytes())
+    assert back["w"].tolist() == [[0, 2, 4], [6, 8, 10]] and back["step"] == 3
+    assert str(back["bf"].dtype) == "bfloat16" and back["bf"].tolist() == [1.5, -2.0]
+    assert back["masked"] == {}
+
+
+def test_weight_and_classifier_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from stylex_tpu_torch import run_attfind, run_counterfactual, train_classifier
+    from stylex_tpu_torch.attfind import AttFindRecords, save_records
+    from stylex_tpu_torch.models.stylex import StylEx
+    from stylex_tpu_torch.train.classifier_training import ClassifierTrainer
+    from stylex_tpu_torch.train.state import create_train_state
+    from stylex_tpu_torch.config import TrainConfig
+    from stylex_tpu_torch.train.trainer import Trainer
+    from stylex_tpu_torch.utils.checkpoint import load_checkpoint_inference, save_jax_checkpoint
+
+    state = create_train_state(StylEx(TINY), TINY, TrainConfig())
+    path = save_jax_checkpoint(str(tmp_path / "models"), "m", 1, state)
+    (tmp_path / "models" / "m" / ".config.json").write_text(TINY.to_json())
+    model_args = ["--name", "m", "--base-dir", str(tmp_path), "--classifier-name", "mobilenet"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint_inference(path, state)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ClassifierTrainer("mobilenet")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_classifier.main(["--dataset", "synthetic", "--image-size", "32", "--epochs", "1",
+                               "--saved-models-dir", str(tmp_path / "s"),
+                               "--results-dir", str(tmp_path / "r"),
+                               "--tensorboard-dir", str(tmp_path / "tb")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_attfind.main([*model_args, "--dataset-name", "synthetic", "--num-images", "1",
+                          "--results-folder", str(tmp_path / "a")])
+    att = tmp_path / "att"
+    att.mkdir()
+    n, c, s = 1, 4, TINY.image_size
+    save_records(AttFindRecords(
+        np.zeros((n, 2, c, 2), np.float32), np.zeros((n, TINY.latent_dim), np.float32),
+        np.zeros((n, 2), np.float32), np.zeros(c, np.float32), np.ones(c, np.float32),
+        np.zeros((n, c), np.float32), np.zeros((n, s, s, 3), np.float32),
+        np.zeros((1, s, s, 1), np.float32), np.zeros((n, 1), np.float32)),
+        str(att / "style_change_records.npz"))
+    (att / "top_styles.json").write_text('{"ranked": [[0, 1]]}')
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_counterfactual.main([*model_args, "--attfind-dir", str(att)])
+    trainer = Trainer(name="m", base_dir=str(tmp_path), classifier_name="mobilenet",
+                      device="cpu")
+    trainer.load(1, inference=True)
+    assert trainer.state.device == torch.device("cpu")
+    trainer.close()
 
 
 @pytest.mark.parametrize("name", ["upsample2x_bilinear", "blur3", "blur3_downsample2x"])

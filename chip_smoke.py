@@ -8,7 +8,9 @@ Phases, in order; any failure exits non-zero:
    builds every CUDA kernel of the package from its sources.
 2. Each kernel against its plain PyTorch version on the card, float32 and
    bfloat16, at the shapes the AttFind main path and the training path
-   (phase 5) give it (plus one 256px-scale upsample), at small and odd
+   (phase 5) give it, and the upsample at those of Google's 256-px
+   generator (phase 10: one literal-graph forward's calls, summed apart,
+   and the fused graph's widest border strips), at small and odd
    widths, and on an input one element into its storage (misaligned): max
    abs error against the stated tolerance. Then CUDA-event times per call
    of the kernel's wrapper, the plain version and the one-call PyTorch
@@ -26,7 +28,8 @@ Phases, in order; any failure exits non-zero:
    chunk, float32 with TF32 off, the same weights on both.
 5. The training path at full width: the CLI's defaults (64px, capacity 16,
    OLD arch, ResNet-18 classifier, batch 4 x 8 micro-batches, the 512-image
-   synthetic set), float32, 6 ``Trainer.train()`` steps with GP at steps 0
+   synthetic set), float32, 6 ``Trainer.train()`` steps (each step's
+   metrics as the trainer logs them) with GP at steps 0
    and 4, PL at step 4, the EMA reset at step 2 and an EMA update at step 4,
    on the default (fused) resample graph, then the same 6 steps forced onto
    the literal graph (``prefer_literal_resample``). Losses must stay
@@ -86,6 +89,27 @@ Phases, in order; any failure exits non-zero:
    logits; (e) ``run_counterfactual`` with phase 3's model saved as a
    ``.ckpt`` on phase 8's records, ``fid_results.csv`` equal to phase 8's.
 
+10. Google's published StylEx generator and the host loop, float32 with
+   TF32 off unless stated: (a) ``GoogleStylExGenerator()`` at 256 px
+   (fmap_base 8192, dlatent 514, seeded weights), batch 8: the upsample
+   kernel's launches per forward on the fused and the literal graph
+   against the count derived from the code, card against CPU and fused
+   against literal within 1e-4 x max|image|, ``style_delta`` zero and
+   one-hot, bf16 finite, ms and peak memory per forward in float32 and
+   bf16; (b) ``ingest_tf.google_fid_topk`` with the port's generator, a
+   stand-in model pair (its style vectors, the seeded MobileNetV2) and the
+   seeded InceptionV3, 16 originals, k = 1: finite FIDs and their seconds;
+   (c) the CLI-default trainer for 8 steps in blocks of 4 with
+   ``metrics_lag=8`` and ``async_save``, and one step at a time
+   synchronously: block sizes, logged steps, losses within phase 6's rtol,
+   the background checkpoint equal bit for bit to the state at its save,
+   wall ms/step and the device's busy share; (d) ``run_attfind
+   --chunks-per-dispatch`` 8 against 1 on 4 images: records equal,
+   styles/s; (e) the C++ pixel pipeline built and taken by
+   ``load_and_transform``, equal to PIL within 2.5/255, and ``measure_op``
+   on the upsample at the sweep-chunk shapes within 2x of phase 2's device
+   ms, under the roofline guard.
+
 Phase 2 also holds the blur fused with 2x decimation, which no path runs,
 at the D/E shapes of training. The script prints a ``kernels`` JSON line
 and, last, the ``ok`` JSON line. Details go to
@@ -120,6 +144,7 @@ N_IMAGES = 4
 F32_TOL = 1e-6  # kernel and plain version do the same float ops: expect 0
 CPU_RTOL, CPU_ATOL = 1e-3, 1e-4  # cuDNN and the CPU sum convolutions in other orders
 TRAIN_BATCH = 32  # images per train step at the CLI defaults: 4 x 8 micro-batches
+GOOGLE_BATCH = 8  # Google's 256-px generator in phase 10
 # the kernels that AttFind and training run; blur3_downsample2x is on no path
 ON_PATH = ("upsample2x_bilinear", "blur3")
 
@@ -227,6 +252,14 @@ def kernel_shapes():
     blur_phase1 = [(N_IMAGES, 64, 64, 64), (N_IMAGES, 128, 32, 32), (N_IMAGES, 256, 16, 16),
                    (N_IMAGES, 512, 8, 8), (N_IMAGES, 512, 4, 4)]
     up_256px = [(4, 64, 128, 128)]
+    # Google's generator at 256 px, batch 8 (phase 10): one forward's calls
+    # on the literal graph (the block entries, then the RGB skips), and the
+    # border strips of the fused graph's largest block entry
+    gb = GOOGLE_BATCH
+    gen256 = ([(gb, c, r, r) for c, r in ((512, 4), (512, 8), (512, 16), (512, 32), (256, 64),
+                                          (128, 128))]
+              + [(gb, 3, r, r) for r in (4, 8, 16, 32, 64, 128)])
+    strips256 = [(gb, 128, 3, 128), (gb, 128, 128, 3)]
     # training at the CLI defaults (phase 5): the D/E full-resolution maps
     # before each stride-2 conv, at 64px (capacity 16)
     de_maps = [(64, 64, 64), (128, 32, 32), (256, 16, 16), (512, 8, 8), (512, 4, 4)]
@@ -241,7 +274,7 @@ def kernel_shapes():
     up_train = [(t, *s[1:]) for s in up_shapes]
     return {
         "upsample2x_bilinear": dict(
-            chunk=up_shapes, extra=up_256px + up_train,
+            chunk=up_shapes, extra=up_256px + up_train + strips256, gen256=gen256,
             ragged=[(8, 3, 4, 1), (8, 3, 4, 2), (8, 3, 3, 5), (8, 3, 1, 4), (8, 3, 1, 1)],
             offset=[(8, 3, 16, 16)]),
         "blur3": dict(
@@ -336,6 +369,13 @@ def kernel_phase(card: str, rates):
                     for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
                         s[key] += row[key]
                     s["bound_by"].add(bound_by)
+                if group == "gen256":  # one literal-graph forward's calls, per dtype
+                    g = s.setdefault(f"gen256_{row['dtype']}", dict(
+                        calls=0, ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                        library_ms=0.0))
+                    g["calls"] += 1
+                    for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms"):
+                        g[key] += row[key]
     for s in summary.values():  # median host cost per call over every shape
         s["host_us"] = statistics.median(s["host_us"])
         s["host_us_grad"] = statistics.median(s["host_us_grad"])
@@ -530,13 +570,29 @@ def _cuda_ms(fn):
     return start.elapsed_time(end), out
 
 
+def _logged_metrics(trainer) -> dict:
+    """step -> the metrics the trainer logs for it, collected as it logs
+    them: with ``metrics_lag`` (the default) ``train()`` returns the latest
+    metrics read, which may be an earlier step's."""
+    logged = {}
+    inner = trainer.logger.log
+
+    def log_and_keep(step, metrics):
+        logged[step] = dict(metrics)
+        inner(step, metrics)
+
+    trainer.logger.log = log_and_keep
+    return logged
+
+
 def _train_run(card: str, base: Path, label: str, model_cfg, tc, n_steps: int,
                literal: bool = False, moving=None):
     """``n_steps`` of ``Trainer.train()`` from step 0 on the synthetic set,
     each timed by CUDA events, with the kernels' launches counted from 0 and
     the peak memory of the steps; ``literal`` forces the literal resample
-    graph. ``moving`` (model -> tensors) must all change. Returns the run's
-    record and the trainer (its loader stopped)."""
+    graph. ``moving`` (model -> tensors) must all change. Each step's
+    metrics are the ones the trainer logged for it. Returns the run's record
+    and the trainer (its loader stopped)."""
     from stylex_tpu_torch.ops import LAUNCHES, reset_launches
     from stylex_tpu_torch.ops.fusion import prefer_literal_resample
     from stylex_tpu_torch.train.trainer import Trainer
@@ -544,6 +600,7 @@ def _train_run(card: str, base: Path, label: str, model_cfg, tc, n_steps: int,
     trainer = Trainer(name=f"smoke-{label}", base_dir=str(base), model_cfg=model_cfg,
                       train_cfg=tc, classifier_name="resnet", seed=0)
     graph = prefer_literal_resample if literal else contextlib.nullcontext
+    logged = _logged_metrics(trainer)
     try:
         trainer.set_data_src(dataset_name="synthetic")
         trainer.init_stylex()
@@ -554,15 +611,11 @@ def _train_run(card: str, base: Path, label: str, model_cfg, tc, n_steps: int,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        rows, ema_checks = [], {}
+        step_ms, ema_checks = [], {}
         for i in range(n_steps):
             with graph():
-                ms, metrics = _cuda_ms(trainer.train)
-            rows.append(dict(step=i, ms=ms, **metrics))
-            log(f"  {label} step {i}: {ms:.1f} ms " + " ".join(
-                f"{k}={v:.5g}" for k, v in metrics.items()) + f" [{card}]")
-            if not all(np.isfinite(v) for v in metrics.values()):
-                raise AssertionError(f"{label} step {i}: non-finite metrics {metrics}")
+                ms, _ = _cuda_ms(trainer.train)
+            step_ms.append(ms)
             if i == 2:  # the EMA reset copied G into GE
                 ema_checks["reset_at_2"] = all(
                     torch.equal(a, b) for a, b in zip(model.GE.parameters(),
@@ -571,12 +624,19 @@ def _train_run(card: str, base: Path, label: str, model_cfg, tc, n_steps: int,
             if i == 4:  # then moved by the EMA update
                 ema_checks["update_at_4"] = not all(
                     torch.equal(a, b) for a, b in zip(model.GE.parameters(), ge2))
+        trainer.flush()
         launches = dict(LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
     finally:
         trainer.close()
+    rows = [dict(step=i, ms=ms, **logged[i]) for i, ms in enumerate(step_ms)]
+    for r in rows:
+        log(f"  {label} step {r['step']}: {r['ms']:.1f} ms " + " ".join(
+            f"{k}={v:.5g}" for k, v in r.items() if k not in ("step", "ms")) + f" [{card}]")
+        if not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f"{label} step {r['step']}: non-finite metrics {r}")
     moved = all(not torch.equal(a, b) for a, b in zip(before, watched))
-    steady = [r["ms"] for r in rows[1:]] or [rows[0]["ms"]]
+    steady = step_ms[1:] or step_ms[:1]
     ms_step = statistics.median(steady)
     res = dict(steps=rows, launches=launches, peak_bytes=peak, ms_per_step=ms_step,
                images_per_s=tc.batch_size * tc.gradient_accumulate_every / (ms_step / 1e3),
@@ -1580,6 +1640,503 @@ def _weights_counterfactual_runner(card: str, base: Path, f32_run, cf_run):
     return dict(seconds=t, fids=fids, rows_equal=True)
 
 
+# ----------------------------------------------------------------- phase 10
+
+
+def google_upsample_launches(spec, fused: bool) -> int:
+    """Kernel #1's launches per forward of Google's generator, from the
+    code: one on the RGB skip per resolution above 4 px; per block entry,
+    four border strips on the fused graph (``ops/upconv.py``, input of 3x3
+    or more) or one upsample on the literal graph."""
+    return sum(1 + (4 if fused and res // 2 >= 3 else 1) for res in spec.resolutions[1:])
+
+
+@contextlib.contextmanager
+def _resample_graph(fused: bool):
+    """Force the fused or the literal resample graph for the calls inside."""
+    import os
+
+    from stylex_tpu_torch.ops.fusion import _ENV
+
+    saved = os.environ.get(_ENV)
+    os.environ[_ENV] = "0" if fused else "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(_ENV, None)
+        if saved is not None:
+            os.environ[_ENV] = saved
+
+
+def google_phase(card: str, summary):
+    """Phase 10: Google's generator at 256 px, its counterfactual FID, the
+    trainer's dispatch knobs, the chunked sweep and the host utilities
+    (``summary``: phase 2's, for (e))."""
+    from stylex_tpu_torch.device import set_float32_precision
+
+    set_float32_precision()
+    base = Path(tempfile.mkdtemp(prefix="stylex_google_", dir=OUT_DIR))
+    out = {}
+    try:
+        t, (out["generator"], gen) = _sync_s(lambda: _google_generator(card))
+        out["generator"]["seconds"] = t
+        t, out["fid_topk"] = _sync_s(lambda: _google_fid_topk(card, gen, base))
+        out["fid_topk"]["seconds"] = t
+        del gen
+        torch.cuda.empty_cache()
+        for key, fn in (("dispatch", lambda: _dispatch_knobs(card, base)),
+                        ("chunked_sweep", lambda: _chunked_sweep(card, base)),
+                        ("host_utilities", lambda: _host_utilities(card, summary))):
+            t, out[key] = _sync_s(fn)
+            out[key]["seconds"] = t
+        log("  phase 10 seconds: " + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in out.items())
+            + f" [{card}]")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return out
+
+
+def _google_generator(card: str):
+    """(a) ``GoogleStylExGenerator()`` (fmap_base 8192, dlatent 514, 256 px,
+    the port's seeded weights), batch 8: kernel #1's launches per forward on
+    each graph against :func:`google_upsample_launches`; float32 (TF32 off)
+    card against CPU (the first 2 images) and fused against literal, within
+    1e-4 x max|image|
+    (cuDNN and the CPU sum the 13 convolutions in other orders, and the
+    fused graph is other ops; expected ~1e-5); a one-hot ``style_delta``
+    moves the image and a zero one is the base bit for bit; bf16 finite; ms
+    per forward and peak memory, float32 and bf16."""
+    import copy
+
+    from stylex_tpu_torch.models.google_stylex import GoogleStylExGenerator
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+
+    gen = GoogleStylExGenerator(seed=0)
+    spec = gen.spec
+    B = GOOGLE_BATCH
+    w = torch.randn(B, spec.dlatent_dim, generator=torch.Generator().manual_seed(1)).cuda()
+    res, images = {}, {}
+    with torch.no_grad():
+        for graph in ("fused", "literal"):
+            with _resample_graph(graph == "fused"):
+                gen.synthesize(w)  # warm-up: cuDNN's and the allocator's first use
+                torch.cuda.synchronize()
+                reset_launches()
+                images[graph] = gen.synthesize(w)
+                torch.cuda.synchronize()
+                launches = dict(LAUNCHES)
+            want = google_upsample_launches(spec, graph == "fused")
+            res[f"launches_{graph}"] = launches
+            log(f"  (a) one {graph} forward at batch {B}, {spec.image_size} px: launches {launches} "
+                f"(upsample derived from the code: {want}) [{card}]")
+            if launches["upsample2x_bilinear"] != want or launches["blur3"] != 0:
+                raise AssertionError(f"{graph} forward launched {launches}, expected "
+                                     f"{want} upsamples and no blur")
+        img = images["fused"]
+        scale = float(img.abs().max())
+        cpu_gen = copy.deepcopy(gen).cpu()
+        with _resample_graph(True):  # the first 2 images: the CPU's forward costs seconds
+            cpu_img = cpu_gen.synthesize(w[:2].cpu())
+        del cpu_gen
+        err_cpu = float((img[:2].cpu() - cpu_img).abs().max())
+        err_graph = float((images["literal"] - img).abs().max())
+        tol = 1e-4 * scale
+        log(f"  (a) float32, TF32 off: card vs CPU max abs err {err_cpu:.4g}, fused vs literal "
+            f"{err_graph:.4g} (tol 1e-4 x max|image| = {tol:.4g}); image {tuple(img.shape)} "
+            f"[{card}]")
+        if img.shape != (B, 3, spec.image_size, spec.image_size) or not bool(torch.isfinite(img).all()) \
+                or err_cpu > tol or err_graph > tol:
+            raise AssertionError(f"Google generator: shape {tuple(img.shape)}, card vs CPU "
+                                 f"{err_cpu}, fused vs literal {err_graph} > {tol}")
+        C = gen.total_style_coords
+        zero = gen.synthesize(w, torch.zeros(B, C, device="cuda"))
+        delta = torch.zeros(B, C, device="cuda")
+        delta[:, 100] = 5.0
+        moved = float((gen.synthesize(w, delta) - img).abs().max())
+        log(f"  (a) style_delta: zero reproduces the base bit for bit "
+            f"{torch.equal(zero, img)}; one-hot 5.0 at coordinate 100 moves it by max "
+            f"{moved:.4g} [{card}]")
+        if not torch.equal(zero, img) or not moved > 0:
+            raise AssertionError(f"style_delta: zero equal {torch.equal(zero, img)}, "
+                                 f"one-hot moved {moved}")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = w.to(dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(gen.synthesize, x, reps=5, loops=3)
+            peak = torch.cuda.max_memory_allocated()
+            finite = bool(torch.isfinite(gen.synthesize(x)).all())
+            tag = str(dtype).split(".")[-1]
+            res[f"ms_{tag}"], res[f"peak_bytes_{tag}"] = ms, peak
+            log(f"  (a) {tag} forward (fused graph): {ms:.3f} ms at batch {B} = "
+                f"{B / ms * 1e3:.1f} images/s, peak {peak / 2**30:.3f} GiB, finite {finite} "
+                f"[{card}]")
+            if not finite:
+                raise AssertionError(f"{tag} forward not finite")
+    res.update(card_vs_cpu_max_abs=err_cpu, fused_vs_literal_max_abs=err_graph,
+               max_abs_image=scale, style_delta_moved=moved)
+    return res, gen
+
+
+class _StandIn:
+    """The protocol's model pair on the card: ``style_vectors`` from the
+    port's generator, ``classify`` by the port's MobileNetV2 (seeded) on
+    the [-1, 1] images mapped to [0, 1]."""
+
+    def __init__(self, gen):
+        from stylex_tpu_torch.models import build_classifier
+
+        self.gen = gen
+        self.clf = build_classifier("mobilenet", gen.spec.image_size, seed=0, device="cuda")
+
+    @torch.no_grad()
+    def style_vectors(self, dlatents):
+        conv, _ = self.gen.style_vectors(torch.as_tensor(dlatents, device="cuda"))
+        return torch.cat(conv, dim=1).cpu().numpy()
+
+    @torch.no_grad()
+    def classify(self, images_nhwc):
+        x = torch.as_tensor(images_nhwc, device="cuda").permute(0, 3, 1, 2)
+        return self.clf.classify_images((x + 1.0) / 2.0).float().cpu().numpy()
+
+
+def _google_fid_topk(card: str, gen, base: Path):
+    """(b) ``google_fid_topk`` on the card: 16 originals (the generator's
+    own images of 16 seeded dlatents), 16 other seeded dlatents, k = 1, the
+    seeded InceptionV3 (phase 8's) through ``STYLEX_TPU_INCEPTION``: finite
+    FIDs, seconds split into the host's ``frechet_distance``, feature
+    statistics and the rest (generation, classification); both kernels'
+    launches counted from 0."""
+    import os
+
+    from stylex_tpu_torch import ingest_tf
+    from stylex_tpu_torch.eval import fid as fid_mod
+    from stylex_tpu_torch.models.inception import ENV, build_inception
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+
+    n = 16
+    rng = np.random.RandomState(7)
+    latents = rng.randn(n, gen.spec.dlatent_dim).astype(np.float32)
+    with torch.no_grad():
+        orig = gen.call_synthesis(torch.from_numpy(rng.randn(n, gen.spec.dlatent_dim)
+                                                   .astype(np.float32)).cuda())
+    originals = ((orig.permute(0, 2, 3, 1).cpu().numpy() + 1.0) / 2.0).clip(0.0, 1.0)
+    weights = base / "inception_seeded.pt"
+    torch.save(build_inception(seed=0, device="cpu").state_dict(), weights)
+    saved = os.environ.get(ENV)
+    os.environ[ENV] = str(weights)
+    try:
+        models = _StandIn(gen)
+        picks = [(0, 100)]
+        reset_launches()
+        with _Timed(fid_mod, "frechet_distance") as fd, \
+                _Timed(fid_mod, "compute_feature_stats") as fs:
+            t, fids = _sync_s(lambda: ingest_tf.google_fid_topk(
+                models, originals, latents, picks, k=1, batch_size=8,
+                generator=(gen.spec, gen), csv_path=str(base / "google_fid.csv")))
+        launches = dict(LAUNCHES)
+    finally:
+        os.environ.pop(ENV, None)
+        if saved is not None:
+            os.environ[ENV] = saved
+    split = dict(total_s=t, frechet_s=sum(fd.seconds), features_s=sum(fs.seconds),
+                 generation_s=t - sum(fd.seconds) - sum(fs.seconds))
+    log(f"  (b) google_fid_topk, {n} originals at 256 px, k = 1: FIDs {fids}; "
+        f"{json.dumps(split)}; launches {launches} [{card}]")
+    if len(fids) != 2 or not all(np.isfinite(fids)) or len(fd.seconds) != 2:
+        raise AssertionError(f"google_fid_topk: FIDs {fids}, frechet calls {len(fd.seconds)}")
+    if launches["upsample2x_bilinear"] <= 0:
+        raise AssertionError("google_fid_topk did not launch the upsample kernel")
+    return dict(fids=fids, launches=launches, **split)
+
+
+def _checkpoint_tensors(payload, clone: bool = False):
+    """name -> tensor of a checkpoint's model state dict and both Adam
+    states (moments and counts), on the card."""
+    out = {f"model.{k}": v for k, v in payload["StylEx"].items()}
+    for opt in ("g_opt", "d_opt"):
+        for i, st in payload[opt]["state"].items():
+            for k, v in st.items():
+                out[f"{opt}.{i}.{k}"] = torch.as_tensor(v)
+    return {k: (v.detach().clone() if clone else v).cuda() for k, v in out.items()}
+
+
+def _state_copy(state) -> dict:
+    """A copy, on the card, of a train state: the model's state dict, both
+    Adam states, ``pl_mean`` and the step."""
+    import copy
+
+    return dict(model={k: v.detach().clone() for k, v in state.model.state_dict().items()},
+                g_opt=copy.deepcopy(state.g_opt.state_dict()),
+                d_opt=copy.deepcopy(state.d_opt.state_dict()),
+                pl_mean=state.pl_mean.detach().clone(), step=state.step)
+
+
+def _state_restore(state, saved: dict) -> None:
+    import copy
+
+    state.model.load_state_dict(saved["model"])
+    state.g_opt.load_state_dict(copy.deepcopy(saved["g_opt"]))
+    state.d_opt.load_state_dict(copy.deepcopy(saved["d_opt"]))
+    state.pl_mean, state.step = saved["pl_mean"].clone(), saved["step"]
+
+
+def _dispatch_run(card: str, base: Path, label: str, k: int, lag: int, async_save: bool,
+                  timed: bool = True, record=None, replay=None, steps: int = 8):
+    """``steps`` steps of the CLI-default trainer (float32, a save every 4)
+    from seed 0 with the given knobs. ``timed``: wall and device time and the busy
+    share of steps 1-7 (``torch.profiler``), launches, and checkpoint 1 (of
+    step 4) held bit for bit against the state at its save. ``record``
+    (a dict) receives the state before each step; ``replay`` (such a dict)
+    sets the state before each step from 1 on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stylex_tpu_torch.config import ModelConfig, TrainConfig
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+    from stylex_tpu_torch.profile_sweep import device_summary
+    from stylex_tpu_torch.train.trainer import Trainer
+
+    t_run = time.perf_counter()
+    tc = TrainConfig(save_every=4, evaluate_every=1000, num_image_tiles=4, steps_per_dispatch=k,
+                     metrics_lag=lag, async_save=async_save, num_train_steps=steps)
+    t = Trainer(name=f"smoke10-{label}", base_dir=str(base / label), model_cfg=ModelConfig(),
+                train_cfg=tc, classifier_name="resnet", seed=0)
+    logged = _logged_metrics(t)
+    res = {}
+    try:
+        t.set_data_src(dataset_name="synthetic")
+        t.init_stylex()
+        if record is not None:
+            inner = t._step_fn
+
+            def recording(state, batch, draws):
+                record[state.step] = _state_copy(state)
+                return inner(state, batch, draws)
+
+            t._step_fn = recording
+        t.train()  # step 0: a boundary, a block of one, with the first save
+        torch.cuda.synchronize()
+        sizes, snapshot = [1], None
+        reset_launches()
+        # the device's activity only: the busy share needs no host events
+        with profile(activities=[ProfilerActivity.CUDA]) if timed \
+                else contextlib.nullcontext() as prof:
+            t0 = time.perf_counter()
+            while t.steps < steps:
+                if replay is not None:
+                    _state_restore(t.state, replay[t.steps])
+                before = t.steps
+                t.train()
+                sizes.append(t.steps - before)
+                if t.steps == 5 and timed:  # checkpoint 1, of step 4, was just submitted
+                    snapshot = _checkpoint_tensors(dict(
+                        StylEx=t.state.model.state_dict(), g_opt=t.state.g_opt.state_dict(),
+                        d_opt=t.state.d_opt.state_dict()), clone=True)
+                    pl_mean = float(t.state.pl_mean)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(LAUNCHES)
+        t.flush()
+    finally:
+        t.close()
+    res.update(sizes=sizes, steps=sorted(logged), metrics=logged, launches=launches)
+    if not timed:
+        res["seconds"] = time.perf_counter() - t_run
+        return res
+    _, device_ms, busy, _ = device_summary(prof, 7, wall_ms)
+    path = base / label / "models" / f"smoke10-{label}" / "model_1.pt"
+    stored = torch.load(path, map_location="cuda", weights_only=True)
+    tensors = _checkpoint_tensors(stored)
+    unequal = sorted(k_ for k_ in set(snapshot) | set(tensors)
+                     if k_ not in snapshot or k_ not in tensors
+                     or not torch.equal(tensors[k_], snapshot[k_]))
+    pl_equal = stored["pl_mean"] == pl_mean
+    res.update(ms_per_step=wall_ms / 7, device_ms_per_step=device_ms, busy_share=busy,
+               checkpoint_unequal=unequal, checkpoint_step=stored["step"],
+               seconds=time.perf_counter() - t_run)
+    log(f"  (c) {label} (steps_per_dispatch {k}, metrics_lag {lag}, async_save "
+        f"{async_save}): blocks {sizes}, logged steps {sorted(logged)}; steps 1-7 "
+        f"{wall_ms / 7:.1f} ms/step wall, {device_ms:.1f} ms/step device time, device busy "
+        f"{busy:.3f}; checkpoint 1 (step {stored['step']}) against the state at its save: "
+        f"{len(unequal)} unequal tensors, pl_mean equal {pl_equal}; launches {launches} "
+        f"[{card}]")
+    if unequal or not pl_equal or stored["step"] != 5:
+        raise AssertionError(f"{label}: checkpoint 1 differs from the state at its save: "
+                             f"{unequal[:5]}, pl_mean {pl_equal}, step {stored['step']}")
+    for name in ON_PATH:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label} training did not launch kernel {name}")
+    return res
+
+
+def _loss_err(a: dict, b: dict) -> float:
+    """The largest |a - b| over steps and losses, as a share of phase 6's
+    tolerance for losses, atol + rtol |b|."""
+    return max(abs(a[s][key] - b[s][key]) / (CPU_ATOL + CPU_RTOL * abs(b[s][key]))
+               for s in b for key in b[s])
+
+
+def _dispatch_knobs(card: str, base: Path):
+    """(c) The CLI-default trainer in float32, 8 steps with a save every 4,
+    from seed 0: blocks of ``steps_per_dispatch=4`` with ``metrics_lag=8``
+    and ``async_save``, and one step at a time, synchronous. The block
+    sizes are the boundary rule's and the logged steps the same; each
+    background checkpoint of step 4 (parameters, buffers, Adam moments and
+    counts, ``pl_mean``) loads back equal, bit for bit, to the state at its
+    save; wall ms/step and the device's busy share of both. The card's
+    float32 steps do not repeat bit for bit (phase 9 (a) shows it), and this
+    model's first steps (losses in the thousands at random weights) magnify
+    that step by step, so the two free runs' losses are reported; the
+    losses are held to phase 6's tolerance from equal states: a third run
+    (steps 0-4: step 0 and one whole block) records the state before each
+    step, and a fourth, one step at a time, starts each step from that
+    state."""
+    blocks = _dispatch_run(card, base, "blocks", 4, 8, True)
+    sync = _dispatch_run(card, base, "sync", 1, 0, False)
+    states: dict = {}  # steps 0-4: step 0 and one whole block
+    recorded = _dispatch_run(card, base, "blocks-rec", 4, 8, True, timed=False, record=states,
+                             steps=5)
+    replayed = _dispatch_run(card, base, "replay", 1, 0, False, timed=False, replay=states,
+                             steps=5)
+    del states
+    torch.cuda.empty_cache()
+    for r, want in ((blocks, [1, 4, 3]), (sync, [1] * 8), (recorded, [1, 4]),
+                    (replayed, [1] * 5)):
+        if r["sizes"] != want or r["steps"] != list(range(sum(want))):
+            raise AssertionError(f"blocks {r['sizes']} (want {want}), logged {r['steps']}")
+    free = {s: max(abs(blocks["metrics"][s][key] - sync["metrics"][s][key])
+                   / max(abs(sync["metrics"][s][key]), 1e-30)
+                   for key in sync["metrics"][s]) for s in range(8)}
+    log("  (c) free runs, blocks against one step at a time, max rel loss diff per step: "
+        + ", ".join(f"{s}: {v:.3g}" for s, v in free.items()) + f" [{card}]")
+    err = _loss_err(recorded["metrics"], replayed["metrics"])
+    log("  (c) seconds per run: " + ", ".join(
+        f"{label} {r['seconds']:.1f}" for label, r in (("blocks", blocks), ("sync", sync),
+                                                      ("recorded", recorded),
+                                                      ("replayed", replayed))) + f" [{card}]")
+    for step in range(5):
+        log(f"  (c) step {step} from the same state: " + ", ".join(
+            f"{key} {recorded['metrics'][step][key]:.7g} / {replayed['metrics'][step][key]:.7g}"
+            for key in replayed["metrics"][step]) + " (blocks / one step)")
+    log(f"  (c) losses of each step from the same state, blocks against one step at a time: "
+        f"max |diff| {err:.3g} of phase 6's tolerance (rtol {CPU_RTOL}, atol {CPU_ATOL}) "
+        f"[{card}]")
+    if err > 1.0:
+        raise AssertionError(f"a block step's losses differ from a one-step call's from the "
+                             f"same state: {err} of the tolerance")
+    for r in (blocks, sync):
+        del r["metrics"]
+    return dict(blocks=blocks, sync=sync, free_rel_diff_per_step=free, loss_err_of_tol=err)
+
+
+def _chunked_sweep(card: str, base: Path):
+    """(d) ``run_attfind`` on phase 3's 4 synthetic images (64px config,
+    seeded weights saved as a ``.pt``, MobileNetV2, bf16, ``coord_batch``
+    616) with ``--chunks-per-dispatch`` 1, 8, 8 and 1 (in turns): the
+    records equal bit for bit (else within phase 3's 32 bf16 ulps, and the
+    result says which); styles/s of the extraction in each."""
+    from stylex_tpu_torch import attfind, run_attfind
+    from stylex_tpu_torch.config import ModelConfig, TrainConfig
+    from stylex_tpu_torch.models import build_stylex
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+    from stylex_tpu_torch.train.state import create_train_state
+    from stylex_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = ModelConfig()
+    models = base / "sweep_models"
+    model = build_stylex(cfg, seed=0, device="cpu")  # phase 3's seeded weights
+    save_checkpoint(str(models), "m", 1, create_train_state(model, cfg, TrainConfig()))
+    (models / "m" / ".config.json").write_text(cfg.to_json())
+    got, res = {}, {}
+    for run, K in enumerate((1, 8, 8, 1)):  # in turns: the first run carries first-use costs
+        out = base / f"sweep{run}"
+        reset_launches()
+        with _Timed(attfind, "attfind_extraction") as tx:
+            run_attfind.main(["--name", "m", "--base-dir", str(base), "--models-dir",
+                              "sweep_models", "--classifier-name", "mobilenet", "--dataset-name",
+                              "synthetic", "--num-images", str(N_IMAGES), "--coord-batch",
+                              str(COORD_BATCH), "--dtype", "bfloat16", "--chunks-per-dispatch",
+                              str(K), "--results-folder", str(out)])
+        got[run] = attfind.load_records(str(out / attfind.records_file_name()))
+        styles = got[run].style_change.shape[0] * 2 * got[run].style_change.shape[2]
+        res[f"run{run}_k{K}"] = dict(seconds=tx.seconds[0], styles_per_s=styles / tx.seconds[0],
+                                     launches=dict(LAUNCHES))
+        for name in ON_PATH:
+            if LAUNCHES[name] <= 0:
+                raise AssertionError(f"run_attfind --chunks-per-dispatch {K} did not launch "
+                                     f"{name}")
+    fields = ("style_change", "latents", "base_prob", "minima", "maxima", "style_coordinates",
+              "discriminator")
+    diffs = {f: max(float(np.abs(getattr(got[r], f) - getattr(got[0], f)).max())
+                    for r in (1, 2, 3)) for f in fields}
+    bitwise = all(d == 0.0 for d in diffs.values())
+    tol = 32 * bf16_ulp(float(np.abs(got[0].base_prob).max()))
+    log(f"  (d) run_attfind --chunks-per-dispatch 1, 8, 8, 1: max |diff| against the first "
+        f"{diffs}; bit for bit {bitwise} (else tol {tol:.4g}); styles/s of the extraction "
+        + ", ".join(f"{k} {v['styles_per_s']:.1f}" for k, v in res.items())
+        + f"; launches {res['run1_k8']['launches']} [{card}]")
+    if not bitwise and max(diffs.values()) > tol:
+        raise AssertionError(f"chunked sweep records differ: {diffs} > {tol}")
+    return dict(res, max_abs_diff=diffs, bitwise=bitwise, tol=tol)
+
+
+def _host_utilities(card: str, summary):
+    """(e) The C++ pixel pipeline built and taken by ``load_and_transform``
+    (its call count), equal to the PIL path within 2.5/255 (expected 0);
+    ``measure_op`` (its chained loop replayed as a CUDA graph) on kernel #1
+    at the sweep-chunk shapes (bf16) against phase 2's device ms (within
+    2x) and the roofline guard (no raise)."""
+    from PIL import Image
+
+    from stylex_tpu_torch import native
+    from stylex_tpu_torch.data import FolderDataset
+    from stylex_tpu_torch.ops import blur as ops
+    from stylex_tpu_torch.utils.timing import measure_op
+
+    if not native.available():
+        raise AssertionError(f"the native pixel pipeline did not build: {native.build_error}")
+    base = Path(tempfile.mkdtemp(prefix="stylex_native_", dir=OUT_DIR))
+    try:
+        rng = np.random.RandomState(0)
+        for i, size in enumerate(((300, 200), (64, 96), (517, 389), (40, 40))):
+            Image.fromarray(rng.randint(0, 256, size=size[::-1] + (3,)).astype(np.uint8)).save(
+                base / f"{i}.png")
+        ds = FolderDataset(str(base), 64)
+        before = native.CALLS["resize_crop_normalize"]
+        got = [ds[i] for i in range(len(ds))]
+        calls = native.CALLS["resize_crop_normalize"] - before
+        available = native.available
+        native.available = lambda: False
+        try:
+            want = [ds[i] for i in range(len(ds))]
+        finally:
+            native.available = available
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    log(f"  (e) native pipeline built ({native.library_path().name}); load_and_transform took it "
+        f"{calls} times for {len(got)} images; max |native - PIL| {err * 255:.3g}/255 "
+        f"(tol 2.5/255) [{card}]")
+    if calls != len(got) or err > 2.5 / 255:
+        raise AssertionError(f"native path: {calls} calls for {len(got)} images, error {err}")
+    shapes = kernel_shapes()["upsample2x_bilinear"]["chunk"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    total = 0.0
+    for shape in shapes:
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        t = measure_op(ops.upsample2x_bilinear, [x], repeats=3,
+                       bytes_moved=5 * x.numel() * x.element_size())
+        total += t.seconds * 1e3
+    device = summary["upsample2x_bilinear"]["device_ms"]
+    log(f"  (e) measure_op on the upsample at the sweep chunk's {len(shapes)} shapes (bf16): "
+        f"{total:.4f} ms summed against phase 2's device ms {device:.4f} (ratio "
+        f"{total / device:.3f}, must be within 2x); roofline guard passed [{card}]")
+    if not 0.5 <= total / device <= 2.0:
+        raise AssertionError(f"measure_op {total} ms against device {device} ms: beyond 2x")
+    return dict(native_calls=calls, native_vs_pil_max_abs=err, measure_op_ms=total,
+                phase2_device_ms=device)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--kernels-only", action="store_true",
@@ -1649,6 +2206,13 @@ def main(argv=None) -> int:
     weights_out["seconds"] = time.perf_counter() - t9
     log(f"  phase 9 took {weights_out['seconds']:.1f} s [{card}]")
 
+    log("[phase 10] Google's generator at 256 px, its counterfactual FID, the dispatch knobs, "
+        "the chunked sweep, the host utilities")
+    t10 = time.perf_counter()
+    google_out = google_phase(card, summary)
+    google_out["seconds"] = time.perf_counter() - t10
+    log(f"  phase 10 took {google_out['seconds']:.1f} s [{card}]")
+
     sources = {"upsample2x_bilinear": "stylex_tpu_torch/csrc/upsample2x_bilinear.cu",
                "blur3": "stylex_tpu_torch/csrc/blur3.cu",
                "blur3_downsample2x": "stylex_tpu_torch/csrc/blur3.cu"}
@@ -1670,6 +2234,12 @@ def main(argv=None) -> int:
              + weights_out["inference_load"]["launches"][name],
              launches_weights_step=weights_out["full_load"]["launches"][name],
              launches_weights_attfind=weights_out["inference_load"]["launches"][name],
+             launches_google256=google_out["generator"]["launches_fused"][name],
+             launches_google256_literal=google_out["generator"]["launches_literal"][name],
+             launches_google_fid=google_out["fid_topk"]["launches"][name],
+             launches_dispatch_blocks=google_out["dispatch"]["blocks"]["launches"][name],
+             launches_chunked_sweep=google_out["chunked_sweep"]["run1_k8"]["launches"][name],
+             gen256=s.get("gen256_float32"), gen256_bf16=s.get("gen256_bfloat16"),
              max_abs_err=s["max_abs_err"], ms=s["ms"], device_ms=s["device_ms"],
              plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
              bound_by="+".join(sorted(s["bound_by"])), library_ms=s["library_ms"],
@@ -1684,7 +2254,7 @@ def main(argv=None) -> int:
         main_path_checks=checks, ranked=ranked,
         card_vs_cpu=cpu_errs, training=train_out, conv_precision=conv_rows,
         train_card_vs_cpu=train_cpu_errs, options=options_out, evaluation=eval_out,
-        weights=weights_out,
+        weights=weights_out, google=google_out,
         seconds=time.perf_counter() - t_start,
     )
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
@@ -1698,7 +2268,12 @@ def main(argv=None) -> int:
         f"with FID, launches_eval_clis from its replay and user-study CLIs), launches_weights "
         f"from phase 9: (a) the two train steps from the saved and the loaded trainer "
         f"(launches_weights_step) plus (b) run_attfind on the inference load "
-        f"(launches_weights_attfind)")
+        f"(launches_weights_attfind); launches_google256 from one forward of Google's 256-px "
+        f"generator at batch 8 on the fused graph (_literal on the literal one), "
+        f"launches_google_fid from phase 10 (b), launches_dispatch_blocks from (c)'s 7 steps in "
+        f"blocks of 4, launches_chunked_sweep from (d)'s run_attfind --chunks-per-dispatch 8; "
+        f"gen256 (float32) and gen256_bf16 sum phase 2's times over one literal-graph forward's "
+        f"upsample calls at 256 px")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -18,6 +18,13 @@ Two sweeps give the same records:
   states are freed once its group is done;
 * flat: every perturbation runs the whole generator.
 
+Chunks are issued back to back with no host read between them, and their
+outputs stay on the device: every ``chunks_per_dispatch`` chunks share one
+device-to-host copy of their concatenated effects, into pinned memory and
+without blocking; the host waits for the copies once, at the end of each
+sweep. The chunks, and so the records, are the same for every
+``chunks_per_dispatch``.
+
 The whole extraction runs inside ``prefer_literal_resample()``: the
 generator's and D/E's literal resample graph (bilinear upsample, blur),
 through the package's CUDA kernels on the GPU, as the JAX package's sweep
@@ -41,7 +48,7 @@ import numpy as np
 import torch
 
 from stylex_tpu_torch.config import Arch
-from stylex_tpu_torch.device import resolve_dtype, set_float32_precision
+from stylex_tpu_torch.device import resolve_dtype, set_float32_precision, to_host_async
 from stylex_tpu_torch.models.stylex import StylEx, make_w
 from stylex_tpu_torch.ops.fusion import prefer_literal_resample
 from stylex_tpu_torch.ops.latents import expand_styles
@@ -161,6 +168,7 @@ def attfind_extraction(
     block_resume: bool = True,
     num_images: Optional[int] = None,
     compute_dtype=None,
+    chunks_per_dispatch: int = 8,
 ) -> AttFindRecords:
     """Run the full AttFind extraction over a set of images.
 
@@ -183,6 +191,8 @@ def attfind_extraction(
         per-image block states (same records as the flat sweep).
       num_images: cap on the images that enter the sweep, after the filter.
       compute_dtype: float32 (default) or bfloat16. Records are float32.
+      chunks_per_dispatch: chunks whose effects share one device-to-host
+        copy; the records do not depend on it.
 
     Returns:
       :class:`AttFindRecords`; ``stage_walls`` holds the time at the end of
@@ -244,15 +254,22 @@ def attfind_extraction(
     minima = coords_all.min(dim=0).values
     maxima = coords_all.max(dim=0).values
 
+    K = max(1, int(chunks_per_dispatch))
+
     def run_sweep(total, ids, start_block=0, block_states=None):
         img, coord, is_max = ids
-        effects = [
-            _sweep_chunk(model, classifier_fn, w_all, noise_t, coords_all, minima, maxima,
-                         base_all, img[s:s + coord_batch], coord[s:s + coord_batch],
-                         is_max[s:s + coord_batch], shift_size, start_block, block_states)
-            for s in range(0, total, coord_batch)
-        ]
-        return torch.cat(effects).float().cpu().numpy()
+        group, host = [], []
+        for s in range(0, total, coord_batch):
+            group.append(_sweep_chunk(
+                model, classifier_fn, w_all, noise_t, coords_all, minima, maxima, base_all,
+                img[s:s + coord_batch], coord[s:s + coord_batch], is_max[s:s + coord_batch],
+                shift_size, start_block, block_states))
+            if len(group) == K or s + coord_batch >= total:
+                host.append(to_host_async(torch.cat(group).float()))
+                group = []
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        return torch.cat(host).numpy()
 
     C = model.total_style_coords
     if block_resume:

@@ -20,10 +20,13 @@ options; so are FID during training (``--calculate-fid-every N
 one-vs-all set (``--dataset-name MNIST --data <folder of IDX files>
 --image-size 32``) and the interpolation mode
 (``--generate-interpolation --interpolation-num-steps 100
---save-frames``). A flag of that CLI that the port does not support yet
-(multi-device, ``--steps-per-dispatch``, ``--async-save``...) is refused.
-A step whose losses go non-finite reloads the latest checkpoint and is
-retried, 3 times at most.
+--save-frames``), and so are the host loop's knobs:
+``--steps-per-dispatch K`` (K steps issued back to back, blocks clamped at
+save / evaluate / FID steps) and ``--async-save`` (default True; ``False``
+blocks on every save). The multi-device flags ``--num-devices`` and
+``--multi-gpus`` are refused: parallelism is still to be ported
+(``ROADMAP.md`` §1, "Parallelism"). A step whose losses go non-finite
+reloads the latest checkpoint and is retried, 3 times at most.
 """
 
 from __future__ import annotations
@@ -40,6 +43,9 @@ import torch
 from stylex_tpu_torch.config import Arch, ModelConfig, TrainConfig
 
 __all__ = ["train_from_folder", "parse_argv", "main"]
+
+# flags of the JAX package's CLI that need parallelism, which is not ported
+_PARALLEL_FLAGS = ("num_devices", "multi_gpus")
 
 
 def _as_tuple(x) -> tuple:
@@ -110,6 +116,8 @@ def train_from_folder(
     use_old_architecture: bool = True,
     remat: bool = False,
     fused_microbatches: bool = True,
+    steps_per_dispatch: int = 1,
+    async_save: bool = True,
     device: Optional[str] = None,
 ) -> None:
     """Train a StylEx model, or, with ``generate``, sample grids from it or,
@@ -141,7 +149,8 @@ def train_from_folder(
         calculate_fid_num_images=calculate_fid_num_images, trunc_psi=trunc_psi,
         num_image_tiles=num_image_tiles,
         compute_dtype="bfloat16" if (bf16 or fp16) else "float32",
-        fused_microbatches=fused_microbatches,
+        fused_microbatches=fused_microbatches, steps_per_dispatch=steps_per_dispatch,
+        async_save=async_save, num_train_steps=num_train_steps,
     )
     trainer = Trainer(name=name, results_dir=results_dir, models_dir=models_dir,
                       model_cfg=model_cfg, train_cfg=train_cfg, classifier_name=classifier_name,
@@ -172,6 +181,7 @@ def train_from_folder(
             trainer.load(load_from)
         trainer.set_data_src(data, dataset_name)
         while trainer.steps < num_train_steps:
+            prev_steps = trainer.steps
             retries = 3
             while True:
                 try:
@@ -181,9 +191,11 @@ def train_from_folder(
                     retries -= 1
                     if retries <= 0:
                         raise
-            if trainer.steps % 50 == 0:
+            # a block of several steps may pass over a multiple of 50
+            if trainer.steps // 50 != prev_steps // 50:
                 trainer.logger.print_line(trainer.steps, metrics)
         trainer.save(trainer.checkpoint_num)
+        trainer.flush()  # the last save may be a write in flight
     finally:
         trainer.close()
 
@@ -219,6 +231,9 @@ def parse_argv(argv: Sequence[str]) -> Dict[str, Any]:
         else:
             val = "True"
         key = key.replace("-", "_")
+        if key in _PARALLEL_FLAGS:
+            raise SystemExit(f"--{key.replace('_', '-')} is refused: multi-device training is "
+                             f"not ported yet (ROADMAP.md §1, 'Parallelism')")
         if key not in known:
             raise SystemExit(f"--{key.replace('_', '-')} is not supported by stylex_tpu_torch")
         kwargs[key] = _parse_value(val)

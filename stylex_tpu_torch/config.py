@@ -113,4 +113,35 @@ class TrainConfig:
     trunc_psi: float = 0.75
     num_image_tiles: int = 8
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16' | 'float64' (a CPU witness)
+    # Host-loop pipelining: the number of steps whose metrics may stay in
+    # flight (on the device, copying to the host) before the host blocks to
+    # read, log and NaN-check them. 0 reads every step's metrics at once, as
+    # the reference does. NaN detection lags by at most this many steps
+    # (plus the block's own, with steps_per_dispatch > 1); every save
+    # drains first, so a NaN state is never saved.
+    metrics_lag: int = 8
+    # Steps issued back to back as one block, with no host read between
+    # them. 1 is the reference's one step per host iteration. Randomness and
+    # periodic work are exact: the block's draws are taken in sequential
+    # order, and a save / evaluate / FID step always ends its block.
+    steps_per_dispatch: int = 1
+    # Checkpoints are written by a background thread from a device-side
+    # snapshot, so the loop keeps stepping; loads, the next save, flush()
+    # and close() join the writer. False: the reference's blocking save.
+    async_save: bool = True
     fused_microbatches: bool = True  # False: the scan step, one micro-batch at a time
+    num_train_steps: int = 150_000  # a block never runs past it
+
+    def to_json(self) -> str:
+        d = dataclasses.asdict(self)
+        d["aug_types"] = list(self.aug_types)
+        return json.dumps(d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "TrainConfig":
+        """Read either package's ``TrainConfig`` JSON; fields the port does
+        not have (``num_devices``, ``seed``) are dropped."""
+        d = json.loads(s)
+        d["aug_types"] = tuple(d.get("aug_types", ("translation", "cutout")))
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 Each ``*.cu`` file here is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-a shared library with a plain C interface, under ``build/stylex_tpu_torch/``
-at the root of the checkout, named by a hash of its source, the shared
+a shared library with a plain C interface, in ``BUILD_DIR``
+(``build/stylex_tpu_torch/`` at the root of the checkout, unless
+``utils.cache`` moved it), named by a hash of its source, the shared
 headers (``*.cuh``) and the flags: a changed source builds anew, an
 unchanged one is loaded as built. Missing libraries are built in parallel,
 one ``nvcc`` per source, all started together. Nothing is compiled or
@@ -31,7 +32,9 @@ from typing import Dict, Iterable, Optional
 __all__ = ["KERNELS", "build", "load", "library_path"]
 
 _HERE = Path(__file__).resolve().parent
-BUILD_DIR = _HERE.parents[1] / "build" / "stylex_tpu_torch"
+DEFAULT_BUILD_DIR = _HERE.parents[1] / "build" / "stylex_tpu_torch"
+# where libraries are built and loaded from; utils.cache may move it
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 # kernel name -> (source file, exported C functions)
 KERNELS: Dict[str, tuple] = {

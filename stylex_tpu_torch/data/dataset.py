@@ -5,6 +5,13 @@ side to ``image_size`` (bilinear) -> RandomApply(aug_prob,
 RandomResizedCrop(scale 0.5-1.0, ratio 0.98-1.02), else CenterCrop) ->
 [0, 1] float32 NHWC -> greyscale expansion. PIL is imported only when an
 image is read.
+
+Without augmentation, an RGB image takes the C++ pipeline
+(:mod:`stylex_tpu_torch.native`) where it is built: the resize, the crop
+and the float conversion in one pass, written into ``out`` when given (a
+batch row), equal to the PIL path bit for bit. RGBA images stay on the PIL
+path, whose resize premultiplies alpha; so does every image where the
+pipeline is not built (no ``g++``).
 """
 
 from __future__ import annotations
@@ -47,17 +54,19 @@ def expand_greyscale(arr: np.ndarray, transparent: bool = False) -> np.ndarray:
     return color
 
 
+def _short_side_dims(w: int, h: int, size: int):
+    if w < h:
+        return size, max(1, round(h * size / w))
+    return max(1, round(w * size / h)), size
+
+
 def _resize_short_side(img, size: int):
     from PIL import Image
 
     w, h = img.size
     if min(w, h) == size:
         return img
-    if w < h:
-        nw, nh = size, max(1, round(h * size / w))
-    else:
-        nw, nh = max(1, round(w * size / h)), size
-    return img.resize((nw, nh), Image.BILINEAR)
+    return img.resize(_short_side_dims(w, h, size), Image.BILINEAR)
 
 
 def _center_crop(img, size: int):
@@ -87,13 +96,21 @@ def _random_resized_crop(img, size: int, rng: pyrandom.Random,
 
 
 def load_and_transform(path, image_size: int, transparent: bool = False,
-                       aug_prob: float = 0.0, rng: Optional[pyrandom.Random] = None) -> np.ndarray:
-    """Decode one image to (image_size, image_size, C) float32 in [0, 1]."""
+                       aug_prob: float = 0.0, rng: Optional[pyrandom.Random] = None,
+                       out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Decode one image to (image_size, image_size, C) float32 in [0, 1],
+    into ``out`` when given."""
     from PIL import Image
+
+    from stylex_tpu_torch import native
 
     rng = rng or pyrandom
     img = Image.open(path).convert("RGBA" if transparent else "RGB")
     use_aug = aug_prob > 0 and rng.random() < aug_prob
+    if not use_aug and not transparent and native.available():
+        nw, nh = _short_side_dims(*img.size, image_size)
+        return native.resize_crop_normalize(np.asarray(img), (nh, nw),
+                                            (image_size, image_size), out=out)
     if max(img.size) < image_size:
         img = _resize_short_side(img, image_size)
     img = _resize_short_side(img, image_size)
@@ -101,7 +118,11 @@ def load_and_transform(path, image_size: int, transparent: bool = False,
     arr = np.asarray(img, np.float32) / 255.0
     if arr.ndim == 2:
         arr = arr[..., None]
-    return expand_greyscale(arr, transparent)
+    arr = expand_greyscale(arr, transparent)
+    if out is not None:
+        out[...] = arr
+        return out
+    return arr
 
 
 class FolderDataset:

@@ -1,4 +1,4 @@
-"""Device resolution and the float32 precision policy.
+"""Device resolution, the float32 precision policy, and host copies.
 
 Entry points run on the GPU unless the caller asks for the CPU: with no GPU
 and no explicit ``device="cpu"`` they raise instead of carrying on slowly on
@@ -12,11 +12,12 @@ convolutions in TF32 (about three decimal digits), so
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "set_float32_precision", "resolve_dtype"]
+__all__ = ["resolve_device", "set_float32_precision", "resolve_dtype", "to_host_async",
+           "map_tensors"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -50,3 +51,25 @@ def set_float32_precision() -> None:
     """Compute float32 convolutions and matmuls in full float32 (TF32 off)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def to_host_async(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``. For a CUDA tensor: a pinned buffer filled by a
+    non-blocking copy on the current stream, valid once the device has
+    passed the copy (an event recorded after it, or a synchronise); the
+    host does not wait. A CPU tensor is returned as it is."""
+    if not t.is_cuda:
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+
+
+def map_tensors(tree, fn: Callable[[torch.Tensor], Any]):
+    """``tree`` with ``fn`` applied to every tensor in its dicts, lists and
+    tuples; other leaves stay."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(v, fn) for v in tree)
+    return tree

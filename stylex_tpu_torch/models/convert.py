@@ -20,6 +20,11 @@
   copies, the optax Adam moments and count, ``step`` and ``pl_mean``.
 * :func:`inception_state_dict_from_jax` does it for the FID InceptionV3
   variables, into torchvision's keys.
+* :func:`google_generator_from_jax` builds the port's
+  :class:`~stylex_tpu_torch.models.google_stylex.GoogleStylExGenerator`
+  from the JAX package's Google-generator tree: HWIO conv kernels to OIHW,
+  the (1, 4, 4, C) NHWC constant to NCHW; the style affines keep their
+  (dlatent, C) layout.
 * :func:`load_reference_checkpoint` reads a reference ``.pt`` file.
 * Each bridge has its exact inverse (transposes, reshapes and flips only),
   port -> JAX: :func:`stylex_state_dict_to_jax`, :func:`train_state_to_jax`
@@ -38,9 +43,11 @@ import numpy as np
 import torch
 
 from stylex_tpu_torch.config import ModelConfig
+from stylex_tpu_torch.device import resolve_device
 from stylex_tpu_torch.models.classifiers import _MBV2_PLAN
 from stylex_tpu_torch.models.discriminator import discriminator_filters
 from stylex_tpu_torch.models.generator import generator_filters
+from stylex_tpu_torch.models.google_stylex import GoogleStylExGenerator, GoogleStylExSpec
 
 __all__ = [
     "stylex_state_dict_from_jax",
@@ -53,6 +60,7 @@ __all__ = [
     "inception_state_dict_from_jax",
     "classifier_tree_from_state_dict",
     "lpips_tree_from_params",
+    "google_generator_from_jax",
     "inception_tree_from_state_dict",
     "load_reference_checkpoint",
 ]
@@ -663,6 +671,28 @@ def inception_tree_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, 
         v = val if torch.is_tensor(val) else torch.from_numpy(np.asarray(val))
         tree[leaf] = _n(v).transpose(2, 3, 1, 0) if leaf == "kernel" else _n(v)
     return {"params": params, "batch_stats": stats}
+
+
+def google_generator_from_jax(params: Mapping[str, Any], spec, device=None):
+    """The JAX package's Google-generator tree (``{"const", "convs":
+    [{"weight", "bias", "style_kernel", "style_bias"}], "torgbs": [...]}``,
+    numpy) -> a ``GoogleStylExGenerator`` on ``device`` (the GPU unless
+    ``'cpu'``). ``spec`` is any object with ``image_size``, ``dlatent_dim``
+    and ``channels`` (resolution -> channels), the JAX package's
+    ``GoogleStylExGenerator`` among them."""
+    spec = GoogleStylExSpec(image_size=int(spec.image_size), dlatent_dim=int(spec.dlatent_dim),
+                            channels_map=tuple(sorted((int(r), int(c))
+                                                      for r, c in spec.channels.items())))
+    sd: StateDict = {"const": _t(np.asarray(params["const"]).transpose(0, 3, 1, 2))}
+    for group in ("convs", "torgbs"):
+        for i, p in enumerate(params[group]):
+            sd[f"{group}.{i}.weight"] = _t(np.asarray(p["weight"]).transpose(3, 2, 0, 1))
+            sd[f"{group}.{i}.bias"] = _t(p["bias"])
+            sd[f"{group}.{i}.style_kernel"] = _t(p["style_kernel"])
+            sd[f"{group}.{i}.style_bias"] = _t(np.asarray(p["style_bias"]).reshape(1, -1))
+    module = GoogleStylExGenerator(spec, device="cpu")
+    module.load_state_dict(sd)
+    return module.to(resolve_device(device))
 
 
 def load_reference_checkpoint(path: str) -> StateDict:

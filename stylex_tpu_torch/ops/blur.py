@@ -49,6 +49,7 @@ __all__ = [
     "blur3_downsample2x_plain",
     "upsample2x_blur",
     "upsample2x_blur_unfused",
+    "downsample_blur",
 ]
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in csrc.KERNELS}
@@ -346,3 +347,11 @@ def upsample2x_blur(x: torch.Tensor) -> torch.Tensor:
     if h < 2 or w < 2 or not resample_fusion_enabled():
         return upsample2x_blur_unfused(x)
     return _upsample2x_blur_axis(_upsample2x_blur_axis(x, 2), 3)
+
+
+def downsample_blur(x: torch.Tensor) -> torch.Tensor:
+    """The blur before a stride-2 conv on the discriminator's downsample
+    path: :func:`blur3` (the conv, which has weights, lives with the
+    model). As in the JAX package it is not fused with the decimation
+    (``blur3_downsample2x``, which no path runs)."""
+    return blur3(x)

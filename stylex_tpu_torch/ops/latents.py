@@ -19,7 +19,17 @@ __all__ = [
     "truncate_w",
     "slerp",
     "lpips_normalize",
+    "evaluate_in_chunks",
 ]
+
+
+def evaluate_in_chunks(max_batch_size: int, fn, *args):
+    """``fn`` over chunks of at most ``max_batch_size`` rows of its tensor
+    arguments, the outputs concatenated along the batch axis (the
+    reference's ``evaluate_in_chunks``)."""
+    n = args[0].shape[0]
+    outs = [fn(*[a[s:s + max_batch_size] for a in args]) for s in range(0, n, max_batch_size)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
 def latent_noise(generator: torch.Generator, n: int, latent_dim: int,

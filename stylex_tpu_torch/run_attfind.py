@@ -46,6 +46,9 @@ def main(argv=None) -> None:
     p.add_argument("--discriminator-threshold", type=float, default=None)
     p.add_argument("--use-discriminator", action="store_true")
     p.add_argument("--coord-batch", type=int, default=512)
+    p.add_argument("--chunks-per-dispatch", type=int, default=8,
+                   help="sweep chunks issued back to back whose effects share one "
+                        "device-to-host copy; the records do not depend on it")
     p.add_argument("--no-block-resume", action="store_true",
                    help="use the flat full-recompute sweep")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
@@ -101,6 +104,7 @@ def main(argv=None) -> None:
         coord_batch=args.coord_batch,
         block_resume=not args.no_block_resume,
         compute_dtype=dtype,
+        chunks_per_dispatch=args.chunks_per_dispatch,
     )
     dt = time.perf_counter() - t0
     total = records.style_change.shape[0] * 2 * records.style_change.shape[2]

@@ -20,14 +20,31 @@ count. :class:`ModelLoader` wraps a checkpoint for inference.
 Runs on the GPU unless ``device='cpu'`` is given; without a GPU it raises.
 A float32 trainer turns TF32 off (:func:`set_float32_precision`), as the
 float32 AttFind sweep does.
+
+The host loop is pipelined as the JAX package's is. ``train()`` runs a
+block of up to ``steps_per_dispatch`` steps back to back with no host read
+between them (the block ends at every save / evaluate / FID step), draws
+the block's randomness in sequential order, and queues the block's metrics:
+they stay on the device, copying to pinned host memory without blocking.
+A queued block is read, logged and NaN-checked as soon as its copy has
+landed (on the CPU, where a step has finished when it returns, at once),
+and the host waits for one only when more than ``metrics_lag // k`` blocks
+are queued. The first step and every boundary read all. So a NaN is caught
+at most ``max(metrics_lag, k) + k - 1`` steps late for blocks of k steps
+(``metrics_lag`` for one-step blocks), and every save drains first.
+Checkpoints go through an
+:class:`~stylex_tpu_torch.utils.checkpoint.AsyncCheckpointWriter` with
+``async_save``. ``train()`` returns the latest metrics read and the
+:class:`~stylex_tpu_torch.utils.profiling.StepTimer`'s rates.
 """
 
 from __future__ import annotations
 
 import math
 import shutil
+from collections import deque
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -42,7 +59,7 @@ from stylex_tpu_torch.data import (
     as_float01,
     balanced_class_weights,
 )
-from stylex_tpu_torch.device import resolve_device, set_float32_precision
+from stylex_tpu_torch.device import resolve_device, set_float32_precision, to_host_async
 from stylex_tpu_torch.eval.fid import compute_feature_stats, frechet_distance, resolve_feature_fn
 from stylex_tpu_torch.models.classifiers import build_classifier
 from stylex_tpu_torch.models.lpips import init_lpips_params, load_lpips_params
@@ -58,6 +75,7 @@ from stylex_tpu_torch.ops.latents import (
 from stylex_tpu_torch.train.state import TrainState, create_train_state
 from stylex_tpu_torch.train.steps import StepDraws, draw_step, make_train_step
 from stylex_tpu_torch.utils.checkpoint import (
+    AsyncCheckpointWriter,
     find_checkpoint,
     latest_checkpoint,
     load_any_checkpoint,
@@ -66,12 +84,42 @@ from stylex_tpu_torch.utils.checkpoint import (
 )
 from stylex_tpu_torch.utils.image import make_grid, save_image_grid, to_uint8
 from stylex_tpu_torch.utils.logging import MetricLogger
+from stylex_tpu_torch.utils.profiling import StepTimer
 
 __all__ = ["Trainer", "NanException", "ModelLoader"]
 
 
 class NanException(Exception):
     """Losses went non-finite; the latest checkpoint has been reloaded."""
+
+
+class _Pending:
+    """The metrics of a block of steps from ``step`` on, bound for the host:
+    one (steps, keys) float64 tensor (exact for float32 and float64 losses),
+    copied into pinned memory without blocking where it lies on a GPU, with
+    an event at the copy's end."""
+
+    def __init__(self, step: int, metrics: List[Dict[str, torch.Tensor]], device):
+        self.step = step
+        self.keys = list(metrics[0])
+        rows = torch.stack([torch.stack([torch.as_tensor(m[k], device=device).detach()
+                                         .to(torch.float64).reshape(()) for k in self.keys])
+                            for m in metrics])
+        self.rows = to_host_async(rows)
+        self.event = None
+        if rows.is_cuda:
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def ready(self) -> bool:
+        """Whether the host copy has landed: reading it then waits for
+        nothing."""
+        return self.event is None or self.event.query()
+
+    def read(self) -> List[Dict[str, float]]:
+        if self.event is not None:
+            self.event.synchronize()
+        return [dict(zip(self.keys, row)) for row in self.rows.tolist()]
 
 
 class Trainer:
@@ -115,6 +163,10 @@ class Trainer:
         self.last_fid: Optional[float] = None
         self.logger = MetricLogger(str(self.results_dir / name / "metrics.csv"),
                                    tensorboard_dir=tensorboard_dir, name=name)
+        self._pending: deque = deque()  # _Pending blocks, oldest first
+        self._last_metrics: Dict[str, float] = {}
+        self._ckpt_writer = AsyncCheckpointWriter()
+        self.step_timer = StepTimer()
         self.init_folders()
 
     # ------------------------------------------------------------------ setup
@@ -153,6 +205,7 @@ class Trainer:
         (self.models_dir / self.name).mkdir(parents=True, exist_ok=True)
 
     def clear(self) -> None:
+        self._ckpt_writer.wait()  # a write in flight would bring a file back
         for d in (self.models_dir / self.name, self.results_dir / self.name, self.fid_dir):
             shutil.rmtree(d, ignore_errors=True)
         self.init_folders()
@@ -196,11 +249,17 @@ class Trainer:
                 self._build_step_fn()
 
     def close(self) -> None:
-        """Stop the loader's threads and close the TensorBoard file."""
-        if self.loader is not None:
-            self.loader.close()
-            self.loader = None
-        self.logger.close()
+        """Log the metrics in flight (up to a non-finite step, if any), join
+        the checkpoint writer, stop the loader's threads and close the
+        TensorBoard file."""
+        try:
+            self._drain(0, reload_on_nan=False)
+            self._ckpt_writer.wait()
+        finally:
+            if self.loader is not None:
+                self.loader.close()
+                self.loader = None
+            self.logger.close()
 
     # ------------------------------------------------------------------ train
     def _top_k(self, step: int) -> int:
@@ -209,9 +268,24 @@ class Trainer:
         return math.ceil(tc.batch_size * max(tc.generator_top_k_gamma ** epochs,
                                              tc.generator_top_k_frac))
 
+    def _is_boundary(self, step: int) -> bool:
+        """Steps after which the host has periodic work: save, evaluate or
+        FID."""
+        tc = self.train_cfg
+        return (step % tc.save_every == 0
+                or step % tc.evaluate_every == 0
+                or (step % 100 == 0 and step < 2500)
+                or (tc.calculate_fid_every is not None and step % tc.calculate_fid_every == 0
+                    and step != 0))
+
     def train(self, draws: Optional[StepDraws] = None) -> Dict[str, float]:
-        """One train step, then the save / evaluate cadence. ``draws``
-        defaults to the trainer's generator. Returns the step's metrics."""
+        """One block of steps, then the save / evaluate / FID work of its
+        last step. The block is the largest k <= ``steps_per_dispatch`` whose
+        only boundary step is its last and that stops at
+        ``num_train_steps``; ``draws`` (the first step's draws, default the
+        trainer's generator) makes it one step. Returns the latest metrics
+        read (:meth:`_drain`) with ``step_time_s``, ``steps_per_sec`` and
+        ``imgs_per_sec``."""
         if self.loader is None:
             raise RuntimeError("call set_data_src before train")
         if self._inference_only:
@@ -220,35 +294,83 @@ class Trainer:
         self.init_stylex()
         tc = self.train_cfg
         step = self.steps
-        batch = next(self.loader)
-        if tc.top_k_training:
-            batch["top_k"] = self._top_k(step)
-        if draws is None:
-            draws = draw_step(self.generator, self.model_cfg, tc, tc.batch_size,
-                              self.state.model.num_layers, self.aug_prob or 0.0, step)
-        metrics = {k: float(v) for k, v in self._step_fn(self.state, batch, draws).items()}
-        if not (math.isfinite(metrics["g_loss"]) and math.isfinite(metrics["d_loss"])):
-            print(f"NaN detected for generator or discriminator at step {step}. "
-                  f"Loading the latest checkpoint")
-            self.load(-1)
-            raise NanException
-        self.logger.log(step, metrics)
-        if step % tc.save_every == 0:
-            self.save(step // tc.save_every)
-        if step % tc.evaluate_every == 0 or (step % 100 == 0 and step < 2500):
-            self.evaluate(encoder_input=tc.sample_from_encoder, num=step // tc.evaluate_every)
-        if tc.calculate_fid_every is not None and step % tc.calculate_fid_every == 0 and step != 0:
+        k, limit = 1, 1 if draws is not None else max(1, tc.steps_per_dispatch)
+        while (k < limit and not self._is_boundary(step + k - 1)
+               and step + k < tc.num_train_steps):
+            k += 1
+        # the block's batches and draws in sequential order: a k-step block
+        # consumes exactly the data and randomness of k one-step calls
+        batches, block_draws = [], []
+        for i in range(k):
+            batch = next(self.loader)
+            if tc.top_k_training:
+                batch["top_k"] = self._top_k(step + i)
+            batches.append(batch)
+            block_draws.append(draws if draws is not None else draw_step(
+                self.generator, self.model_cfg, tc, tc.batch_size,
+                self.state.model.num_layers, self.aug_prob or 0.0, step + i))
+        last = step + k - 1
+        with self.step_timer:
+            metrics = [self._step_fn(self.state, b, d) for b, d in zip(batches, block_draws)]
+            self._pending.append(_Pending(step, metrics, self.state.device))
+            drain_all = (self._is_boundary(last) or not self._last_metrics
+                         or tc.metrics_lag == 0)
+            self._drain(0 if drain_all else max(1, tc.metrics_lag // k))
+        out = dict(self._last_metrics)
+        out.update(self.step_timer.stats(
+            images_per_step=k * tc.batch_size * tc.gradient_accumulate_every))
+
+        if last % tc.save_every == 0:
+            self.save(last // tc.save_every)
+        if last % tc.evaluate_every == 0 or (last % 100 == 0 and last < 2500):
+            self.evaluate(encoder_input=tc.sample_from_encoder, num=last // tc.evaluate_every)
+        if tc.calculate_fid_every is not None and last % tc.calculate_fid_every == 0 and last != 0:
             num_batches = math.ceil(tc.calculate_fid_num_images / tc.batch_size)
             self.last_fid = self.calculate_fid(num_batches)
             with open(self.results_dir / self.name / "fid_scores.txt", "a") as f:
-                f.write(f"{step},{self.last_fid}\n")
-        return metrics
+                f.write(f"{last},{self.last_fid}\n")
+        return out
+
+    def _drain(self, lag: int, reload_on_nan: bool = True) -> None:
+        """Read, log and NaN-check queued blocks: every block whose copy has
+        landed, and older ones until at most ``lag`` are queued. A
+        non-finite ``g_loss`` or ``d_loss`` drops the queue and, with
+        ``reload_on_nan``, reloads the latest checkpoint and raises
+        :class:`NanException`; without it, stops logging there."""
+        while self._pending and (len(self._pending) > lag or self._pending[0].ready()):
+            block = self._pending.popleft()
+            for i, metrics in enumerate(block.read()):
+                if not (math.isfinite(metrics["g_loss"]) and math.isfinite(metrics["d_loss"])):
+                    self._pending.clear()
+                    if not reload_on_nan:
+                        return
+                    print(f"NaN detected for generator or discriminator at step "
+                          f"{block.step + i}. Loading the latest checkpoint")
+                    self.load(-1)
+                    raise NanException
+                self.logger.log(block.step + i, metrics)
+                self._last_metrics = metrics
 
     # ----------------------------------------------------------- persistence
     def save(self, num: int) -> str:
+        """Checkpoint ``num`` of the current state, after reading every
+        queued metric (a NaN state is never saved); in the background with
+        ``async_save``. Returns the file's path."""
+        self._drain(0)
         self.write_config()
-        return save_checkpoint(str(self.models_dir), self.name, num, self.state,
-                               extra={"version": __version__})
+        extra = {"version": __version__}
+        if self.train_cfg.async_save:
+            return self._ckpt_writer.submit(str(self.models_dir), self.name, num, self.state,
+                                            extra=extra)
+        self._ckpt_writer.wait()
+        return save_checkpoint(str(self.models_dir), self.name, num, self.state, extra=extra)
+
+    def flush(self) -> None:
+        """Read, log and NaN-check every queued metric and join the
+        checkpoint writer: after it, every step is logged and every save is
+        on disk."""
+        self._drain(0)
+        self._ckpt_writer.wait()
 
     def load(self, num: int = -1, inference: bool = False, ship_ema: bool = True,
              param_dtype: Optional[torch.dtype] = None) -> None:
@@ -260,7 +382,13 @@ class Trainer:
         ``inference=True`` builds the model on the host, loads it there and
         places only the parameters on the device (cast to ``param_dtype``
         where float32; the EMA copies too when ``ship_ema``), with no
-        optimizer state: :meth:`train` then raises until a full load."""
+        optimizer state: :meth:`train` then raises until a full load.
+
+        The metrics in flight are logged first (up to a non-finite step, if
+        any) and the checkpoint writer is joined: a save in flight may be the
+        file read here."""
+        self._drain(0, reload_on_nan=False)
+        self._ckpt_writer.wait()
         self.load_config()
         if num == -1:
             found = latest_checkpoint(str(self.models_dir), self.name)

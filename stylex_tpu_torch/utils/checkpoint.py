@@ -17,21 +17,27 @@ the counters.
 loads (:func:`load_any_checkpoint`, :func:`load_checkpoint_inference`).
 
 A file is written under a temporary name and renamed, so a reader never
-sees half of one.
+sees half of one. Tensors are written from the host, so a file does not
+depend on the device it was saved from. :class:`AsyncCheckpointWriter`
+writes the same file from a background thread, off a snapshot of the state
+taken on the device.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import threading
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from stylex_tpu_torch.device import map_tensors, to_host_async
 from stylex_tpu_torch.utils import flax_msgpack
 
 __all__ = [
+    "AsyncCheckpointWriter",
     "save_checkpoint",
     "load_checkpoint",
     "save_jax_checkpoint",
@@ -53,24 +59,117 @@ def checkpoint_path(models_dir: str, name: str, num: int, suffix: str = ".pt") -
     return Path(models_dir) / name / f"model_{num}{suffix}"
 
 
-def save_checkpoint(models_dir: str, name: str, num: int, state,
-                    extra: Optional[Dict[str, Any]] = None) -> str:
-    """Write ``state`` (a :class:`~stylex_tpu_torch.train.state.TrainState`)
-    as checkpoint ``num``; returns its path."""
-    path = checkpoint_path(models_dir, name, num)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    payload = {
+def _payload(state, extra: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """What a checkpoint holds, as references to the live tensors: the
+    model's state dict, both Adam states, the step, ``pl_mean`` (a 0-d
+    tensor here, a float in the file) and ``extra``."""
+    return {
         "StylEx": state.model.state_dict(),
         "g_opt": state.g_opt.state_dict(),
         "d_opt": state.d_opt.state_dict(),
         "step": int(state.step),
-        "pl_mean": float(state.pl_mean),
+        "pl_mean": state.pl_mean.detach(),
         **(extra or {}),
     }
+
+
+def _write_checkpoint_file(path: Path, payload: Dict[str, Any]) -> None:
+    """Serialise a payload of host tensors and publish it atomically."""
+    payload = {**payload, "pl_mean": float(payload["pl_mean"])}
     tmp = path.with_suffix(".pt.tmp")
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def save_checkpoint(models_dir: str, name: str, num: int, state,
+                    extra: Optional[Dict[str, Any]] = None) -> str:
+    """Write ``state`` (a :class:`~stylex_tpu_torch.train.state.TrainState`)
+    as checkpoint ``num``, blocking; returns its path."""
+    path = checkpoint_path(models_dir, name, num)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    _write_checkpoint_file(path, map_tensors(_payload(state, extra),
+                                              lambda t: t.detach().cpu()))
     return str(path)
+
+
+def _snapshot(tree):
+    """A copy of every tensor of ``tree`` that later in-place updates of the
+    originals do not reach, bound for the host: ``(host tree, event)``.
+
+    The tensors are cloned on the device, on the current stream, so the next
+    train step may update the originals at once. A side stream waits for
+    the clones and copies them into pinned host memory without blocking;
+    ``event`` (None when no tensor is on a GPU) marks the copies' end, and a
+    reader of the host tree on another thread waits for it first: before
+    then the host buffers are still being written. The clones are recorded
+    on the side stream, so the allocator does not hand their memory to
+    other work before the copies have read it."""
+    clones = map_tensors(tree, lambda t: t.detach().clone())
+    cuda = []
+    map_tensors(clones, lambda t: cuda.append(t) if t.is_cuda else None)
+    if not cuda:
+        return clones, None
+    device = cuda[0].device
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+
+    def to_host(t: torch.Tensor) -> torch.Tensor:
+        if t.is_cuda:
+            t.record_stream(side)
+        return to_host_async(t)
+
+    with torch.cuda.stream(side):
+        host = map_tensors(clones, to_host)
+        done = torch.cuda.Event()
+        done.record(side)
+    return host, done
+
+
+class AsyncCheckpointWriter:
+    """Writes checkpoints in a background thread, one at a time.
+
+    :meth:`submit` snapshots the state on the device and starts its copies
+    to the host (:func:`_snapshot`), then a non-daemon thread waits for
+    them, serialises and publishes the file by atomic rename: the file
+    :func:`save_checkpoint` would have written, and never a partial one
+    under its name. The train loop keeps stepping meanwhile. :meth:`wait`
+    (called by the next submit, by every load, and at flush and close)
+    joins the thread and raises its error, if any, on the caller's thread.
+    """
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._exc: Optional[BaseException] = None
+
+    def wait(self) -> None:
+        """Join the write in flight, if any; raise its failure once."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+    def submit(self, models_dir: str, name: str, num: int, state,
+               extra: Optional[Dict[str, Any]] = None) -> str:
+        """Start writing ``state`` as checkpoint ``num``; returns its path."""
+        self.wait()
+        path = checkpoint_path(models_dir, name, num)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        host, done = _snapshot(_payload(state, extra))
+
+        def write():
+            try:
+                if done is not None:
+                    done.synchronize()
+                _write_checkpoint_file(path, host)
+            except BaseException as e:  # raised on the caller's thread by wait()
+                self._exc = e
+
+        self._thread = threading.Thread(target=write, name=f"ckpt-write-{name}-{num}",
+                                        daemon=False)
+        self._thread.start()
+        return str(path)
 
 
 def load_checkpoint(path: str, state) -> None:

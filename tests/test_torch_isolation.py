@@ -1,9 +1,11 @@
 """The port stands alone: it imports neither JAX, flax, msgpack, ml_dtypes
 nor the JAX package (its codec of flax's msgpack format works with those
-hidden), its default-device entry points refuse to run without a GPU, and
-its kernel wrappers take the plain versions on CPU tensors without
-touching the CUDA build."""
+hidden), nor TensorFlow when a module is imported (``ingest_tf`` imports it
+inside the functions that read a SavedModel), its default-device entry
+points refuse to run without a GPU, and its kernel wrappers take the plain
+versions on CPU tensors without touching the CUDA build."""
 
+import ast
 import json
 import os
 import pkgutil
@@ -37,7 +39,7 @@ def test_importing_every_module_loads_no_jax():
         "import importlib, json, sys\n"
         f"for name in {_module_names()!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'stylex_tpu', 'msgpack', 'ml_dtypes'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'stylex_tpu', 'msgpack', 'ml_dtypes', 'tensorflow'))\n"
         "print(json.dumps(bad))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -49,7 +51,9 @@ def test_importing_every_module_loads_no_jax():
     names = _module_names()
     assert len(names) >= 15
     for new in ("utils.flax_msgpack", "ingest", "run_counterfactual", "train_classifier",
-                "train.classifier_training", "data.labeled", "data.download"):
+                "train.classifier_training", "data.labeled", "data.download", "ingest_tf",
+                "models.google_stylex", "native", "utils.profiling", "utils.timing",
+                "utils.device", "utils.cache"):
         assert f"stylex_tpu_torch.{new}" in names, new
 
 
@@ -59,6 +63,23 @@ def test_sources_name_no_jax_import():
     for path in PKG.rglob("*.py"):
         assert not pattern.search(path.read_text()), path
     assert not pattern.search((ROOT / "chip_smoke.py").read_text())
+
+
+def test_tensorflow_is_imported_only_inside_functions():
+    """No module of the port imports TensorFlow at module level; the native
+    loader builds the port's own copy of the C++ source."""
+    for path in PKG.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in tree.body:
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            assert not any(n.split(".")[0] == "tensorflow" for n in names), path
+    ingest_tf = (PKG / "ingest_tf.py").read_text()
+    assert "import tensorflow as tf" in ingest_tf
+    from stylex_tpu_torch import native
+
+    assert native._SRC == PKG / "native" / "pixel_ops.cpp" and native._SRC.exists()
+    assert "stylex_tpu.native" not in (PKG / "native" / "__init__.py").read_text()
 
 
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):
@@ -72,6 +93,15 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         build_stylex(TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_classifier("mobilenet", 16)
+    from stylex_tpu_torch.models.google_stylex import GoogleStylExGenerator, GoogleStylExSpec
+    from stylex_tpu_torch.utils.device import init_on_host
+
+    spec = GoogleStylExSpec(image_size=8, dlatent_dim=4, channels_map=((4, 4), (8, 2)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GoogleStylExGenerator(spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_on_host(torch.zeros, 2)
+    assert GoogleStylExGenerator(spec, device="cpu").const.device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
 
 

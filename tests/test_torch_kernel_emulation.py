@@ -137,7 +137,8 @@ def _run_kernel(lib, name, x):
 SHAPES = {
     "upsample2x_bilinear": [(2, 3, 4, 4), (3, 5, 8, 8), (1, 3, 16, 16), (1, 2, 32, 32),
                             (2, 3, 4, 1), (2, 3, 4, 2), (2, 3, 3, 5), (2, 3, 1, 4),
-                            (2, 3, 1, 1), (1, 2, 5, 12)],
+                            (2, 3, 1, 1), (1, 2, 5, 12), (1, 2, 128, 128), (1, 2, 3, 128),
+                            (1, 2, 128, 3)],
     "blur3": [(3, 3, 8, 8), (2, 3, 16, 16), (1, 3, 64, 64), (2, 5, 4, 4), (2, 3, 2, 2),
               (2, 3, 5, 7), (2, 3, 2, 6), (2, 3, 7, 3), (1, 1, 3, 20)],
     "blur3_downsample2x": [(2, 3, 64, 64), (2, 4, 4, 4), (2, 3, 2, 2), (2, 3, 6, 10),

@@ -110,6 +110,20 @@ Phases, in order; any failure exits non-zero:
    on the upsample at the sweep-chunk shapes within 2x of phase 2's device
    ms, under the roofline guard.
 
+11. Data parallelism on the one card, float32 with TF32 off: (a) the
+   CLI-default trainer (ResNet-18, batch 4 x 8) as one process, as a
+   group of one under NCCL and as two ranks sharing the card under gloo
+   (2 images a rank per micro-batch): one plain train step from the seeded
+   weights (metrics and parameters against one process as trained,
+   gradients with the kinks smoothed), then 5
+   ``Trainer.train()`` steps (step 0's losses against one process, every
+   rank's state after step 4 bit-equal to rank 0's, both kernels launched
+   in every rank, ms/step, the gradient all-reduce's bytes and ms per
+   step); (b) ``run_attfind --name`` at phase 3's config in float32 on two
+   ranks against one process: records within phase 3's float32 bound,
+   both kernels launched in every rank, styles/s. Two ranks sharing one
+   card are no speed figure.
+
 Phase 2 also holds the blur fused with 2x decimation, which no path runs,
 at the D/E shapes of training. The script prints a ``kernels`` JSON line
 and, last, the ``ok`` JSON line. Details go to
@@ -119,6 +133,9 @@ and, last, the ``ok`` JSON line. Details go to
 
 runs phases 1-2 alone; with ``--package-root`` it times the kernels of
 another checkout (an unpacked parent commit) with this script's phase 2.
+``python3 chip_smoke.py --parallel-only [--cards N]`` runs phases 1 and
+11 alone; with ``--cards N`` phase 11 also runs on N cards, one rank each
+(NCCL), for a machine with that many.
 """
 
 import argparse
@@ -702,26 +719,6 @@ def _state_to(state, device) -> None:
 # ------------------------------------------------------------------ phase 6
 
 
-class _RecordSGD(torch.optim.SGD):
-    """SGD that keeps the gradients of its last step."""
-
-    def step(self, closure=None):
-        self.grads = [p.grad.detach().cpu().clone() for g in self.param_groups
-                      for p in g["params"]]
-        return super().step(closure)
-
-
-def _draws_to(draws, device):
-    def move(x):
-        if torch.is_tensor(x):
-            return x.to(device)
-        if isinstance(x, tuple):
-            return type(x)(*map(move, x)) if hasattr(x, "_fields") else tuple(map(move, x))
-        return x
-
-    return move(draws)
-
-
 TRAIN_TREES = ("encoder", "S", "G", "D")
 # (input, weight, stride, padding): the trainable convs of phase 6's step
 # where cuDNN's float32 weight gradient strays most (D over 4 fakes and 4
@@ -791,36 +788,6 @@ def conv_precision():
     return out
 
 
-@contextlib.contextmanager
-def smooth_kinks(eps: float = 1e-2):
-    """Replace the kinked functions of a train step (leaky ReLU in G, D and
-    E; ReLU in the hinge loss, ResNet-18 and LPIPS; their max pooling) by
-    smooth stand-ins: ``(1+a)/2 x + (1-a)/2 sqrt(x^2 + eps)`` for slope a,
-    average pooling. At a kink, float32 rounding decides on which side an
-    activation falls, and one flipped activation changes its weights'
-    gradients by about 1 / (positions in the batch), beyond the per-element
-    tolerance: a CPU step whose weights move by 1e-6 of themselves already
-    disagrees with itself so (``cpu_f32_perturbed`` below). With no kinks
-    the step is a smooth function, and the card must agree with the CPU
-    and the witness element by element."""
-    import torch.nn.functional as F
-
-    saved = F.leaky_relu, F.relu, F.max_pool2d
-
-    def leaky(x, negative_slope=0.01, inplace=False):
-        a = negative_slope
-        return (1 + a) / 2 * x + (1 - a) / 2 * torch.sqrt(x * x + eps)
-
-    F.leaky_relu = leaky
-    F.relu = lambda x, inplace=False: leaky(x, 0.0)
-    F.max_pool2d = lambda x, kernel_size, stride=None, padding=0, *args, **kwargs: F.avg_pool2d(
-        x, kernel_size, stride, padding)
-    try:
-        yield
-    finally:
-        F.leaky_relu, F.relu, F.max_pool2d = saved
-
-
 def train_card_vs_cpu_phase(cfg=None, tc=None, witness: bool = True):
     """One train step from the same weights, batch and draws: on the CPU in
     float64 (the witness: float64 copies of the float32 weights), on the CPU
@@ -837,10 +804,11 @@ def train_card_vs_cpu_phase(cfg=None, tc=None, witness: bool = True):
     without ``witness`` only the card and the CPU in float32 run."""
     from stylex_tpu_torch.config import ModelConfig, TrainConfig
     from stylex_tpu_torch.data import SyntheticImageDataset
-    from stylex_tpu_torch.device import set_float32_precision
+    from stylex_tpu_torch.device import map_tensors, set_float32_precision
     from stylex_tpu_torch.models import build_classifier, build_stylex
     from stylex_tpu_torch.models.lpips import init_lpips_params
     from stylex_tpu_torch.ops import conv as conv_ops
+    from stylex_tpu_torch.testing.harness import PlainStep, smooth_kinks
     from stylex_tpu_torch.train import create_train_state, draw_step, make_train_step
 
     set_float32_precision()
@@ -870,11 +838,11 @@ def train_card_vs_cpu_phase(cfg=None, tc=None, witness: bool = True):
         step_tc = dataclasses.replace(tc, compute_dtype=dtype)
         state = create_train_state(model, cfg, step_tc)
         state.pl_mean = torch.tensor(0.5, device=state.device)
-        state.g_opt = _RecordSGD([p for g in state.g_opt.param_groups for p in g["params"]],
-                                 lr=1e-4)
-        state.d_opt = _RecordSGD(list(model.D.parameters()), lr=1e-4)
+        state.g_opt = PlainStep([p for g in state.g_opt.param_groups for p in g["params"]],
+                                1e-4)
+        state.d_opt = PlainStep(list(model.D.parameters()), 1e-4)
         step = make_train_step(cfg, step_tc, clf.classify_images, init_lpips_params(device=dev))
-        metrics = step(state, batch, _draws_to(draws, dev))
+        metrics = step(state, batch, map_tensors(draws, lambda t: t.to(dev)))
         names = [n for n, _ in model.named_parameters()]
         g_names = [n for n in names if n.startswith(("encoder.", "S.", "G."))]
         grads = dict(zip(g_names, state.g_opt.grads))
@@ -2136,6 +2104,216 @@ def _host_utilities(card: str, summary):
     return dict(native_calls=calls, native_vs_pil_max_abs=err, measure_op_ms=total,
                 phase2_device_ms=device)
 
+# ----------------------------------------------------------------- phase 11
+
+
+def _tree_err(got: dict, want: dict, prefix: str = "") -> float:
+    """The largest |got - want| over each tree's tensors (keys
+    ``<prefix><tree>.``), as a share of that tree's largest |want|."""
+    worst = 0.0
+    for tree in ("encoder", "S", "G", "D"):
+        keys = [k for k in want if k.startswith(f"{prefix}{tree}.")]
+        if not keys:
+            continue
+        scale = max(float(want[k].abs().max()) for k in keys)
+        worst = max(worst, max(float((got[k] - want[k]).abs().max()) for k in keys) / scale)
+    return worst
+
+
+def parallel_phase(card: str, cards: int = 1):
+    """Phase 11: data parallelism on the one card, float32 with TF32 off.
+    Three runs of the same work: (1) one process, no process group; (2)
+    ``launch`` with one rank (NCCL); (3) two ranks on cuda:0 (gloo), 2
+    images a rank per micro-batch. Each runs (a) one plain train step from
+    the seeded weights as trained and with the kinks smoothed, then the
+    CLI-default trainer for 5 steps; (1) and (3) run (b) ``run_attfind
+    --name`` at the ``bench.py`` config (one process through the CLI's
+    ``main``, two ranks through its rank function in (3)'s group). With
+    ``cards`` above 1 a fourth run does (a) and (b) on that many cards, one
+    rank each (NCCL)."""
+    from stylex_tpu_torch import run_attfind
+    from stylex_tpu_torch.config import ModelConfig, TrainConfig
+    from stylex_tpu_torch.data import SyntheticImageDataset
+    from stylex_tpu_torch.models import build_stylex
+    from stylex_tpu_torch.models.lpips import init_lpips_params
+    from stylex_tpu_torch.ops import reset_launches
+    from stylex_tpu_torch.parallel import launch, make_mesh
+    from stylex_tpu_torch.testing import harness
+    from stylex_tpu_torch.train import draw_step
+    from stylex_tpu_torch.train.state import create_train_state
+    from stylex_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = ModelConfig()
+    tc = TrainConfig(pl_start_step=0, pl_every=4, ema_start_step=0, ema_every=2,
+                     save_every=1000, evaluate_every=1000, num_image_tiles=4)
+    step_tc = dataclasses.replace(tc, pl_start_step=-1, aug_prob=0.25)  # GP and PL at step 0
+    A, B = tc.gradient_accumulate_every, tc.batch_size
+    ds = SyntheticImageDataset(3 * A * B, cfg.image_size)
+    imgs = np.stack([ds[i] for i in range(3 * A * B)]).reshape(3, A, B, *ds[0].shape)
+    step = dict(model_cfg=cfg, train_cfg=step_tc, state_dict=None, seed=0, step=0, pl_mean=0.5,
+                classifier=("resnet", cfg.image_size, cfg.num_classes, None),
+                lpips=init_lpips_params(device="cpu"), optimizer=tc.lr, every_rank=False,
+                draws=draw_step(torch.Generator().manual_seed(7), cfg, step_tc, B,
+                                int(np.log2(cfg.image_size)) - 1, 0.25, 0),
+                batch=dict(zip(("d_real", "d_enc", "g_imgs"), imgs)))
+    base = Path(tempfile.mkdtemp(prefix="stylex_parallel_", dir=OUT_DIR))
+    try:
+        (base / "models" / "bench").mkdir(parents=True)
+        (base / "models" / "bench" / ".config.json").write_text(cfg.to_json())
+        save_checkpoint(str(base / "models"), "bench", 1, create_train_state(
+            build_stylex(cfg, seed=0, device="cpu"), cfg, TrainConfig()))
+        argv = ["--name", "bench", "--base-dir", str(base), "--models-dir", "models",
+                "--classifier-name", "mobilenet", "--dataset-name", "synthetic",
+                "--num-images", str(N_IMAGES), "--coord-batch", str(COORD_BATCH),
+                "--dtype", "float32"]
+
+        def cases(label, sweep=False):
+            trainer = dict(name=f"parallel-{label}", base_dir=str(base), model_cfg=cfg,
+                           train_cfg=tc, classifier_name="resnet", seed=0, tensorboard_dir=None)
+            out = [("step", dict(step, keep=("state_dict",))),
+                   ("step", dict(step, smooth_kinks=1e-2, keep=("grads",))),
+                   ("trainer", dict(steps=5, snapshot_after=0, trainer=trainer))]
+            if sweep:
+                out.append(("run_attfind", argv + ["--results-folder", str(base / label)]))
+            return out
+
+        def sweep_process():
+            reset_launches()  # from 0, as in a spawned rank
+            # one process even where the CLI's default would take every card
+            return [run_attfind.extract(make_mesh(1, "cuda"), run_attfind.parse_args(
+                argv + ["--results-folder", str(base / "sweep_process")]))]
+
+        spec = [("process", lambda: [harness.run(make_mesh(1, "cuda"), cases("process"))]),
+                ("nccl_1", lambda: launch(harness.run, 1, "cuda", args=(cases("nccl_1"),))),
+                ("gloo_2", lambda: launch(harness.run, 2, ["cuda:0", "cuda:0"],
+                                          args=(cases("gloo_2", sweep=True),)))]
+        if cards > 1:
+            spec.append((f"nccl_{cards}", lambda: launch(
+                harness.run, cards, "cuda", args=(cases(f"nccl_{cards}", sweep=True),))))
+        runs, seconds = {}, {}
+        for label, run in spec + [("sweep_process", sweep_process)]:
+            t = time.perf_counter()
+            runs[label] = run()
+            seconds[label] = time.perf_counter() - t
+        train = _parallel_train(card, runs, seconds)
+        sweep = _parallel_sweep(card, runs, base, [label for label, _ in spec[2:]])
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    log(f"  phase 11 seconds per run: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+        + f" [{card}]")
+    return dict(train=train, sweep=sweep, seconds_per_run=seconds)
+
+
+def _parallel_train(card: str, runs: dict, seconds: dict):
+    """(a) The plain step (GP and PL on): metrics (phase 6's rtol) and
+    parameters (phase 6's tolerance) as trained, and the gradients per tree
+    with the kinks smoothed (phase 6's 1e-4 x max|g|; as trained, the
+    ranks' other float32 summation order flips activations at the kinks,
+    as the card's and the CPU's do in phase 6), of the group of one and the
+    two ranks against one process. The trainer (Adam; GP at 0 and 4, the
+    EMA reset at 2, PL and an EMA update at 4): step 0's losses against one
+    process; every rank's state after step 4 equal to rank 0's bit for
+    bit; losses finite; both kernels launched in every rank; ms per step
+    and the gradient all-reduce's bytes and ms per step. Adam's step-0
+    gradients (its first moments) are reported: the G phase runs on the D
+    that Adam moved, and Adam's first step maps a gradient within rounding
+    of 0 to +-lr."""
+    (want_step, want_smooth, want), out = runs["process"][0], {}
+    for label in (label for label in runs if label != "sweep_process"):
+        ranks = [r[:3] for r in runs[label]]
+        r_step, r_smooth, r0 = ranks[0]
+        m_err = max(abs(r_step["metrics"][k] - v) / max(abs(v), 1e-30)
+                    for k, v in want_step["metrics"].items())
+        g_err = _tree_err(r_smooth["grads"], want_smooth["grads"])
+        p_err = max(float(((r_step["state_dict"][k] - v).abs()
+                           / (CPU_ATOL + CPU_RTOL * v.abs())).max())
+                    for k, v in want_step["state_dict"].items() if v.is_floating_point())
+        m0 = r0["metrics"][0]
+        loss_err = max(abs(m0[k] - v) / max(abs(v), 1e-30) for k, v in want["metrics"][0].items())
+        adam_err = {phase: _tree_err(r0["snapshot"], want["snapshot"], f"{phase}_opt.")
+                    for phase in ("d", "g")}
+        bitwise = len(ranks) == 1 or all(r[-1]["state"] == r0["state"] for r in ranks[1:])
+        finite = all(np.isfinite(v) for r in ranks for m in r[-1]["metrics"].values()
+                     for v in m.values())
+        ms = statistics.median(r0["ms"][1:])
+        reduce = r0.get("grad_all_reduce")
+        launches = [r[-1]["launches"] for r in ranks]
+        out[label] = dict(ranks=len(ranks), step_metrics=r_step["metrics"],
+                          step_metric_rel_err=m_err, step_grad_err_smooth=g_err,
+                          step_param_err=p_err, train_step0=m0,
+                          train_step0_loss_rel_err=loss_err, train_step0_adam_grad_err=adam_err,
+                          ranks_bitwise=bitwise, ms_per_step=ms, ms=r0["ms"], launches=launches,
+                          grad_all_reduce=reduce, metrics=r0["metrics"], seconds=seconds[label])
+        log(f"  (a) {label}, {len(ranks)} rank(s): one plain step against one process: metrics "
+            f"{m_err:.3g} (rtol {CPU_RTOL}), parameters {p_err:.3g} of phase 6's bound "
+            f"(must be <= 1), gradients with the kinks smoothed {g_err:.3g} x max|g| (tol "
+            f"{CPU_ATOL}); Trainer: median {ms:.1f} ms/step over steps 1-4"
+            + (" (two ranks sharing one card: not a speed figure)" if label == "gloo_2" else "")
+            + f", step 0 losses {m0}, max rel diff {loss_err:.3g} "
+            f"(rtol {CPU_RTOL}), Adam's step-0 gradients x max|g| (reported) D phase "
+            f"{adam_err['d']:.3g}, G phase {adam_err['g']:.3g}; ranks bit-equal after step 4: "
+            f"{bitwise}; launches per rank {launches}"
+            + (f"; gradient all-reduce {reduce['bytes_per_step']:.0f} bytes/step, "
+               f"{reduce['ms']:.3f} ms/step" if reduce else "")
+            + f"; the run took {seconds[label]:.1f} s [{card}]")
+        if label != "process" and (m_err > CPU_RTOL or g_err > CPU_ATOL or p_err > 1
+                                   or loss_err > CPU_RTOL):
+            raise AssertionError(f"{label} differs from one process: step metrics {m_err}, "
+                                 f"gradients {g_err}, parameters {p_err}, trainer losses "
+                                 f"{loss_err}")
+        if not (bitwise and finite):
+            raise AssertionError(f"{label}: ranks bit-equal {bitwise}, losses finite {finite}")
+        gp = [r0["metrics"][i]["gp"] for i in range(5)]
+        pl = [r0["metrics"][i]["pl_mean"] for i in range(5)]
+        if not (gp[0] > 0 and gp[4] > 0 and gp[1] == gp[2] == gp[3] == 0 and pl[3] == -1.0
+                and pl[4] >= 0):
+            raise AssertionError(f"{label}: GP {gp} and PL {pl} off their steps")
+        for rank, counts in enumerate(launches):
+            for name in ON_PATH:
+                if counts[name] <= 0:
+                    raise AssertionError(f"{label} rank {rank} did not launch {name}")
+    return out
+
+
+def _parallel_sweep(card: str, runs: dict, base: Path, sharded: list):
+    """(b) ``run_attfind --name`` at the ``bench.py`` config (phase 3's
+    seeded model saved as a checkpoint, MobileNetV2, 4 synthetic images,
+    ``coord_batch=616``, float32, block-resume), the ``sharded`` runs' ranks
+    (two on cuda:0 under gloo; one a card under NCCL) against one process:
+    records within phase 3's float32 bound, both kernels launched in every
+    rank, styles/s of each."""
+    from stylex_tpu_torch.attfind import load_records, records_file_name
+
+    want = load_records(str(base / "sweep_process" / records_file_name()))
+    fields = ("style_change", "latents", "base_prob", "minima", "maxima", "style_coordinates",
+              "discriminator")
+    summaries = {"process": runs["sweep_process"],
+                 **{label: [r[3] for r in runs[label]] for label in sharded}}
+    out = {label: dict(ranks=len(r), seconds=r[0]["seconds"],
+                       styles_per_s=r[0]["styles"] / r[0]["seconds"],
+                       launches=[x["launches"] for x in r]) for label, r in summaries.items()}
+    for label in sharded:
+        got = load_records(str(base / label / records_file_name()))
+        over = {f: float((np.abs(getattr(got, f) - getattr(want, f))
+                          - (CPU_ATOL + CPU_RTOL * np.abs(getattr(want, f)))).max())
+                for f in fields}
+        out[label]["max_abs_diff"] = diff = {
+            f: float(np.abs(getattr(got, f) - getattr(want, f)).max()) for f in fields}
+        log(f"  (b) run_attfind, {label} against one process: max |diff| {diff} (bound "
+            f"{CPU_ATOL} + {CPU_RTOL} x |x|, phase 3's float32 one); launches per rank "
+            f"{out[label]['launches']} [{card}]")
+        if max(over.values()) > 0:
+            raise AssertionError(f"{label} records beyond the bound: {diff}")
+    log(f"  (b) styles/s " + ", ".join(f"{k} {v['styles_per_s']:.1f} ({v['ranks']} rank(s))"
+                                      for k, v in out.items())
+        + f" (two ranks sharing one card: not a speed figure) [{card}]")
+    for label, res in out.items():
+        for rank, launches in enumerate(res["launches"]):
+            for name in ON_PATH:
+                if launches[name] <= 0:
+                    raise AssertionError(f"(b) {label} rank {rank} did not launch {name}")
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
@@ -2146,6 +2324,11 @@ def main(argv=None) -> int:
                     help="import stylex_tpu_torch from this checkout (to time another commit's "
                          "kernels with this script's phase 2)")
     ap.add_argument("--tag", default="", help="suffix of the --kernels-only output file")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="phases 1 and 11 only; details to chip_smoke_parallel.json")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="with --parallel-only: also run phase 11 on this many cards, one rank "
+                         "each (NCCL)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2163,6 +2346,14 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     paths = csrc.build(verbose=True)
     log(f"  built {sorted(paths)} in {time.perf_counter() - t:.2f} s")
+
+    if args.parallel_only:
+        log("[phase 11] data parallelism on the one card")
+        parallel_out = parallel_phase(card, args.cards)
+        (OUT_DIR / "chip_smoke_parallel.json").write_text(json.dumps(
+            dict(card=card, kind=kind, parallel=parallel_out), indent=1, default=str))
+        log(card)
+        return 0
 
     log("[phase 2] kernels against their plain versions")
     rows, summary, host_parts = kernel_phase(card, rates)
@@ -2213,6 +2404,13 @@ def main(argv=None) -> int:
     google_out["seconds"] = time.perf_counter() - t10
     log(f"  phase 10 took {google_out['seconds']:.1f} s [{card}]")
 
+    log("[phase 11] data parallelism on the one card: the trainer as one process, a group of "
+        "one (NCCL) and two ranks (gloo); run_attfind on two ranks")
+    t11 = time.perf_counter()
+    parallel_out = parallel_phase(card)
+    parallel_out["seconds"] = time.perf_counter() - t11
+    log(f"  phase 11 took {parallel_out['seconds']:.1f} s [{card}]")
+
     sources = {"upsample2x_bilinear": "stylex_tpu_torch/csrc/upsample2x_bilinear.cu",
                "blur3": "stylex_tpu_torch/csrc/blur3.cu",
                "blur3_downsample2x": "stylex_tpu_torch/csrc/blur3.cu"}
@@ -2239,6 +2437,10 @@ def main(argv=None) -> int:
              launches_google_fid=google_out["fid_topk"]["launches"][name],
              launches_dispatch_blocks=google_out["dispatch"]["blocks"]["launches"][name],
              launches_chunked_sweep=google_out["chunked_sweep"]["run1_k8"]["launches"][name],
+             launches_parallel_train=sum(
+                 r[name] for r in parallel_out["train"]["gloo_2"]["launches"]),
+             launches_parallel_sweep=sum(
+                 r[name] for r in parallel_out["sweep"]["gloo_2"]["launches"]),
              gen256=s.get("gen256_float32"), gen256_bf16=s.get("gen256_bfloat16"),
              max_abs_err=s["max_abs_err"], ms=s["ms"], device_ms=s["device_ms"],
              plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
@@ -2254,7 +2456,7 @@ def main(argv=None) -> int:
         main_path_checks=checks, ranked=ranked,
         card_vs_cpu=cpu_errs, training=train_out, conv_precision=conv_rows,
         train_card_vs_cpu=train_cpu_errs, options=options_out, evaluation=eval_out,
-        weights=weights_out, google=google_out,
+        weights=weights_out, google=google_out, parallel=parallel_out,
         seconds=time.perf_counter() - t_start,
     )
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
@@ -2271,7 +2473,9 @@ def main(argv=None) -> int:
         f"(launches_weights_attfind); launches_google256 from one forward of Google's 256-px "
         f"generator at batch 8 on the fused graph (_literal on the literal one), "
         f"launches_google_fid from phase 10 (b), launches_dispatch_blocks from (c)'s 7 steps in "
-        f"blocks of 4, launches_chunked_sweep from (d)'s run_attfind --chunks-per-dispatch 8; "
+        f"blocks of 4, launches_chunked_sweep from (d)'s run_attfind --chunks-per-dispatch 8, "
+        f"launches_parallel_train and launches_parallel_sweep from phase 11's two ranks "
+        f"(summed over both) of (a) 5 train steps and (b) run_attfind; "
         f"gen256 (float32) and gen256_bf16 sum phase 2's times over one literal-graph forward's "
         f"upsample calls at 256 px")
     log(card)

@@ -8,4 +8,6 @@ dicts use the reference checkpoint's keys; the public AttFind entry points
 take and return the JAX package's layouts (NHWC numpy images and records).
 """
 
-__version__ = "0.1.0"
+from stylex_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -31,6 +31,14 @@ through the package's CUDA kernels on the GPU, as the JAX package's sweep
 does (it measured faster there for forward-only sweeps). An explicit
 ``STYLEX_TPU_NO_FUSED_UPCONV`` still wins.
 
+With a ``mesh`` of several ranks (:mod:`stylex_tpu_torch.parallel`) every
+rank runs phase 1 and the discriminator filter on every image, keeping rank
+0's results (broadcast), and takes its slice of each chunk of
+perturbations; ``coord_batch`` is rounded up to a multiple of the world
+size, a short last chunk is padded, and each copy group's effects are
+gathered once, so that every rank returns the same records, those of one
+process.
+
 The records keep the JAX package's layout (NHWC images, the same shapes)
 and the reference's ``style_change_records.hdf5`` schema. Where h5py is
 not installed they go to ``.npz`` with the same datasets:
@@ -41,6 +49,7 @@ not installed they go to ``.npz`` with the same datasets:
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -52,6 +61,7 @@ from stylex_tpu_torch.device import resolve_dtype, set_float32_precision, to_hos
 from stylex_tpu_torch.models.stylex import StylEx, make_w
 from stylex_tpu_torch.ops.fusion import prefer_literal_resample
 from stylex_tpu_torch.ops.latents import expand_styles
+from stylex_tpu_torch.parallel.mesh import Mesh, coordinate_sharding, gather, replicated
 
 __all__ = [
     "AttFindRecords",
@@ -148,6 +158,16 @@ def _sweep_ids(n_images: int, offset: int, size: int, device):
     return img, coord, is_max
 
 
+def _gather_chunks(local: torch.Tensor, sizes: List[int], mesh: Mesh) -> torch.Tensor:
+    """Every rank's effects of a group of chunks (this rank's are ``local``:
+    ``ceil(n / W)`` rows per chunk of ``n`` in ``sizes``, in chunk order) ->
+    the chunks' effects in perturbation order, padding dropped."""
+    per = [math.ceil(n / mesh.world_size) for n in sizes]
+    ranks = gather(local, mesh).reshape(mesh.world_size, sum(per), -1)
+    return torch.cat([part.reshape(mesh.world_size * p, -1)[:n]
+                      for part, p, n in zip(ranks.split(per, dim=1), per, sizes)])
+
+
 def _to_nchw(images: np.ndarray, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2))).to(device, dtype)
 
@@ -169,6 +189,7 @@ def attfind_extraction(
     num_images: Optional[int] = None,
     compute_dtype=None,
     chunks_per_dispatch: int = 8,
+    mesh: Optional[Mesh] = None,
 ) -> AttFindRecords:
     """Run the full AttFind extraction over a set of images.
 
@@ -193,6 +214,9 @@ def attfind_extraction(
       compute_dtype: float32 (default) or bfloat16. Records are float32.
       chunks_per_dispatch: chunks whose effects share one device-to-host
         copy; the records do not depend on it.
+      mesh: a data-parallel mesh whose ranks split each chunk (every rank
+        calls with the same arguments and gets the same records); None or
+        a mesh without a process group: one process.
 
     Returns:
       :class:`AttFindRecords`; ``stage_walls`` holds the time at the end of
@@ -217,6 +241,10 @@ def attfind_extraction(
         if progress:
             print(f"attfind[{tag}] +{stage_walls[tag]:.1f}s", flush=True)
 
+    if mesh is not None and mesh.group is None:
+        mesh = None
+    if mesh is not None:
+        coord_batch = math.ceil(coord_batch / mesh.world_size) * mesh.world_size
     images = np.asarray(images, np.float32)
     P = images.shape[0]
     noise_t = torch.from_numpy(np.asarray(noise, np.float32)).to(device, dtype)
@@ -231,6 +259,8 @@ def attfind_extraction(
     w_all, coords_all, d_all, base_all = (torch.cat([p[i] for p in parts]) for i in range(4))
     states = _cat_states([p[4] for p in parts]) if capture else None
     del parts
+    if mesh is not None:  # rank 0's phase 1: the filter and records agree
+        replicated(mesh, [w_all, coords_all, d_all, base_all])
     mark("phase1")
 
     keep = np.arange(P)
@@ -258,15 +288,23 @@ def attfind_extraction(
 
     def run_sweep(total, ids, start_block=0, block_states=None):
         img, coord, is_max = ids
-        group, host = [], []
+        group, sizes, host = [], [], []
         for s in range(0, total, coord_batch):
+            rows = slice(s, s + coord_batch)
+            if mesh is not None:  # this rank's share, the last id repeated as padding
+                n = min(coord_batch, total - s)
+                part = coordinate_sharding(mesh, n)
+                rows = torch.arange(part.start, part.stop, device=device).clamp(max=n - 1) + s
+                sizes.append(n)
             group.append(_sweep_chunk(
                 model, classifier_fn, w_all, noise_t, coords_all, minima, maxima, base_all,
-                img[s:s + coord_batch], coord[s:s + coord_batch], is_max[s:s + coord_batch],
-                shift_size, start_block, block_states))
+                img[rows], coord[rows], is_max[rows], shift_size, start_block, block_states))
             if len(group) == K or s + coord_batch >= total:
-                host.append(to_host_async(torch.cat(group).float()))
-                group = []
+                effects = torch.cat(group).float()
+                if mesh is not None:
+                    effects = _gather_chunks(effects, sizes, mesh)
+                host.append(to_host_async(effects))
+                group, sizes = [], []
         if device.type == "cuda":
             torch.cuda.current_stream(device).synchronize()
         return torch.cat(host).numpy()
@@ -277,6 +315,8 @@ def attfind_extraction(
             states = _capture_states(model, w_all, noise_t, phase1_batch)
         else:
             states = [(x[:N], None if rgb is None else rgb[:N]) for x, rgb in states]
+        if mesh is not None:
+            replicated(mesh, states)
         mark("capture_states")
         per_block = []
         offset = 0

@@ -23,10 +23,18 @@ one-vs-all set (``--dataset-name MNIST --data <folder of IDX files>
 --save-frames``), and so are the host loop's knobs:
 ``--steps-per-dispatch K`` (K steps issued back to back, blocks clamped at
 save / evaluate / FID steps) and ``--async-save`` (default True; ``False``
-blocks on every save). The multi-device flags ``--num-devices`` and
-``--multi-gpus`` are refused: parallelism is still to be ported
-(``ROADMAP.md`` §1, "Parallelism"). A step whose losses go non-finite
-reloads the latest checkpoint and is retried, 3 times at most.
+blocks on every save). A step whose losses go non-finite reloads the latest
+checkpoint and is retried, 3 times at most.
+
+Data parallelism: ``--num-devices N`` trains on N ranks, one process per
+device (:func:`stylex_tpu_torch.parallel.launch`: GPU r for rank r, or N
+host ranks under ``--device cpu``), each taking its slice of every
+micro-batch; the training is the one process's on the same data and
+draws, and rank 0 writes every file. The default is the JAX CLI's: the
+largest count up to the GPUs present that divides ``--batch-size`` (1
+under ``--device cpu``); at one device it runs in this process. A count
+that does not divide the batch size, or more GPUs than are present, is
+refused. ``--multi-gpus`` is a no-op, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -43,10 +51,6 @@ import torch
 from stylex_tpu_torch.config import Arch, ModelConfig, TrainConfig
 
 __all__ = ["train_from_folder", "parse_argv", "main"]
-
-# flags of the JAX package's CLI that need parallelism, which is not ported
-_PARALLEL_FLAGS = ("num_devices", "multi_gpus")
-
 
 def _as_tuple(x) -> tuple:
     return tuple(x) if isinstance(x, (list, tuple)) else (x,)
@@ -118,15 +122,19 @@ def train_from_folder(
     fused_microbatches: bool = True,
     steps_per_dispatch: int = 1,
     async_save: bool = True,
+    num_devices: Optional[int] = None,
+    multi_gpus: bool = False,
     device: Optional[str] = None,
 ) -> None:
     """Train a StylEx model, or, with ``generate``, sample grids from it or,
-    with ``generate_interpolation``, write an interpolation GIF."""
-    from stylex_tpu_torch.train.trainer import NanException, Trainer
+    with ``generate_interpolation``, write an interpolation GIF; on
+    ``num_devices`` ranks."""
+    from stylex_tpu_torch.parallel import launch, make_mesh, resolve_num_devices
 
-    np.random.seed(seed)
-    pyrandom.seed(seed)
-    torch.manual_seed(seed)
+    if multi_gpus:
+        print("--multi-gpus is a no-op here: use --num-devices to size the data-parallel "
+              "group (one process per device).")
+    num_devices = resolve_num_devices(num_devices, batch_size, device)
     model_cfg = ModelConfig(
         image_size=image_size, network_capacity=network_capacity, fmap_max=fmap_max,
         latent_dim=512 + num_classes, lr_mlp=lr_mlp, transparent=transparent,
@@ -150,36 +158,61 @@ def train_from_folder(
         num_image_tiles=num_image_tiles,
         compute_dtype="bfloat16" if (bf16 or fp16) else "float32",
         fused_microbatches=fused_microbatches, steps_per_dispatch=steps_per_dispatch,
-        async_save=async_save, num_train_steps=num_train_steps,
+        async_save=async_save, num_train_steps=num_train_steps, num_devices=num_devices,
     )
-    trainer = Trainer(name=name, results_dir=results_dir, models_dir=models_dir,
-                      model_cfg=model_cfg, train_cfg=train_cfg, classifier_name=classifier_name,
-                      classifier_path=classifier_path, lpips_path=lpips_path, seed=seed,
-                      clear_fid_cache=clear_fid_cache, tensorboard_dir=tensorboard_dir,
-                      device=device)
-    if log:
+    trainer_kwargs = dict(name=name, results_dir=results_dir, models_dir=models_dir,
+                          model_cfg=model_cfg, train_cfg=train_cfg,
+                          classifier_name=classifier_name, classifier_path=classifier_path,
+                          lpips_path=lpips_path, seed=seed, clear_fid_cache=clear_fid_cache,
+                          tensorboard_dir=tensorboard_dir)
+    run = dict(data=data, new=new, load_from=load_from, generate=generate,
+               num_generate=num_generate, generate_interpolation=generate_interpolation,
+               interpolation_num_steps=interpolation_num_steps, save_frames=save_frames,
+               log=log, dataset_name=dataset_name)
+    if num_devices > 1:
+        launch(_train, num_devices, device, args=(trainer_kwargs, run))
+    else:
+        _train(make_mesh(1, device), trainer_kwargs, run)
+
+
+def _train(mesh, trainer_kwargs: Dict[str, Any], run: Dict[str, Any]) -> None:
+    """:func:`train_from_folder`'s work on one rank of ``mesh``: rank 0
+    alone prints and writes files."""
+    from stylex_tpu_torch.train.trainer import NanException, Trainer
+
+    seed, name = trainer_kwargs["seed"], trainer_kwargs["name"]
+    np.random.seed(seed)
+    pyrandom.seed(seed)
+    torch.manual_seed(seed)
+    num_train_steps = trainer_kwargs["train_cfg"].num_train_steps
+    trainer = Trainer(device=mesh.device, **trainer_kwargs)
+    main = trainer.is_main
+    if run["log"] and main:
         # the reference's log=True turns on its aim sink; the metrics CSV,
         # always on, takes its place here as in the JAX package
         print(f"[stylex_tpu_torch] --log: the aim sink is replaced by the metrics CSV "
               f"({trainer.results_dir / name / 'metrics.csv'}), which is always on")
     try:
-        if generate:
-            trainer.load(load_from)
-            for i in range(num_generate):
-                trainer.evaluate(num=i)
-            print(f"sample images generated under {trainer.results_dir / name}")
+        if run["generate"]:
+            trainer.load(run["load_from"])
+            if main:
+                for i in range(run["num_generate"]):
+                    trainer.evaluate(num=i)
+                print(f"sample images generated under {trainer.results_dir / name}")
             return
-        if generate_interpolation:
-            trainer.load(load_from)
-            out = trainer.generate_interpolation(num=0, num_steps=interpolation_num_steps,
-                                                 save_frames=save_frames)
-            print(f"interpolation generated at {out}")
+        if run["generate_interpolation"]:
+            trainer.load(run["load_from"])
+            if main:
+                out = trainer.generate_interpolation(
+                    num=0, num_steps=run["interpolation_num_steps"],
+                    save_frames=run["save_frames"])
+                print(f"interpolation generated at {out}")
             return
-        if new:
+        if run["new"]:
             trainer.clear()
         else:
-            trainer.load(load_from)
-        trainer.set_data_src(data, dataset_name)
+            trainer.load(run["load_from"])
+        trainer.set_data_src(run["data"], run["dataset_name"])
         while trainer.steps < num_train_steps:
             prev_steps = trainer.steps
             retries = 3
@@ -192,7 +225,7 @@ def train_from_folder(
                     if retries <= 0:
                         raise
             # a block of several steps may pass over a multiple of 50
-            if trainer.steps // 50 != prev_steps // 50:
+            if main and trainer.steps // 50 != prev_steps // 50:
                 trainer.logger.print_line(trainer.steps, metrics)
         trainer.save(trainer.checkpoint_num)
         trainer.flush()  # the last save may be a write in flight
@@ -231,9 +264,6 @@ def parse_argv(argv: Sequence[str]) -> Dict[str, Any]:
         else:
             val = "True"
         key = key.replace("-", "_")
-        if key in _PARALLEL_FLAGS:
-            raise SystemExit(f"--{key.replace('_', '-')} is refused: multi-device training is "
-                             f"not ported yet (ROADMAP.md §1, 'Parallelism')")
         if key not in known:
             raise SystemExit(f"--{key.replace('_', '-')} is not supported by stylex_tpu_torch")
         kwargs[key] = _parse_value(val)

@@ -131,6 +131,9 @@ class TrainConfig:
     async_save: bool = True
     fused_microbatches: bool = True  # False: the scan step, one micro-batch at a time
     num_train_steps: int = 150_000  # a block never runs past it
+    # data-parallel ranks (stylex_tpu_torch.parallel); None: the group the
+    # trainer runs in (one process outside a launched worker)
+    num_devices: Optional[int] = None
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)
@@ -140,7 +143,7 @@ class TrainConfig:
     @classmethod
     def from_json(cls, s: str) -> "TrainConfig":
         """Read either package's ``TrainConfig`` JSON; fields the port does
-        not have (``num_devices``, ``seed``) are dropped."""
+        not have (``seed``) are dropped."""
         d = json.loads(s)
         d["aug_types"] = tuple(d.get("aug_types", ("translation", "cutout")))
         known = {f.name for f in dataclasses.fields(cls)}

@@ -6,6 +6,10 @@ the dual contrastive loss), each stacked as (accum, B, H, W, C) uint8, which
 the train step moves to the device and divides by 255 there. Also
 class-balanced sampling weights. The same code as the JAX package's
 ``data/loader.py`` (numpy only), kept as the port's own copy.
+
+A rank of a data-parallel group passes ``shard``: it draws the same global
+index order as every other rank and decodes only its slice of each
+micro-batch for training.
 """
 
 from __future__ import annotations
@@ -42,13 +46,21 @@ class SampleLoader:
     ``quantize=True`` ships batches as uint8 (images are 8-bit at rest) and
     the train step normalises them on the device: a quarter of float32's
     host-to-device bytes.
+
+    ``shard``: the rows of each batch that the producer decodes ahead.
+    :meth:`next_shard` returns them; ``next()`` returns the whole batch,
+    decoding the other rows when it is called. Either takes the next batch
+    of the one index stream (``pulled`` counts them; :meth:`skip` drops
+    some), so ranks that take the same number of batches stay in step.
     """
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, num_workers: int = 8,
                  weights: Optional[np.ndarray] = None, prefetch: int = 4,
-                 quantize: bool = True):
+                 quantize: bool = True, shard: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard = slice(None) if shard is None else shard
+        self.pulled = 0
         self.rng = np.random.RandomState(seed)
         self.weights = None
         if weights is not None:
@@ -56,7 +68,7 @@ class SampleLoader:
             self.weights = w / w.sum()
         self.quantize = quantize
         self.pool = ThreadPoolExecutor(max_workers=num_workers)
-        self.queue: "queue.Queue[np.ndarray]" = queue.Queue(maxsize=prefetch)
+        self.queue: "queue.Queue[tuple]" = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
@@ -67,25 +79,53 @@ class SampleLoader:
             return self.rng.choice(n, size=self.batch_size, p=self.weights)
         return self.rng.randint(0, n, size=self.batch_size)
 
+    def _submit(self, indices) -> list:
+        return [self.pool.submit(self.dataset.__getitem__, int(i)) for i in indices]
+
+    def _decode(self, futures) -> np.ndarray:
+        batch = np.stack([f.result() for f in futures]).astype(np.float32)
+        if self.quantize:
+            batch = np.clip(batch * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
+        return batch
+
     def _producer(self):
         while not self._stop.is_set():
             idx = self._draw_indices()
             try:
-                futures = [self.pool.submit(self.dataset.__getitem__, int(i)) for i in idx]
+                futures = self._submit(idx[self.shard])
             except RuntimeError:
                 # close() shut the pool down between the stop-flag check and
                 # the submit; just exit the producer
                 return
-            batch = np.stack([f.result() for f in futures]).astype(np.float32)
-            if self.quantize:
-                batch = np.clip(batch * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
-            try:
-                self.queue.put(batch, timeout=60.0)
-            except queue.Full:
-                continue
+            item = (idx, self._decode(futures))
+            # wait for room rather than drop the batch: the stream must not
+            # depend on how long the consumer took (ranks stay in step)
+            while not self._stop.is_set():
+                try:
+                    self.queue.put(item, timeout=1.0)
+                    break
+                except queue.Full:
+                    continue
+
+    def next_shard(self) -> np.ndarray:
+        """The next batch's ``shard`` rows."""
+        self.pulled += 1
+        return self.queue.get()[1]
 
     def __next__(self) -> np.ndarray:
-        return self.queue.get()
+        """The next batch, whole."""
+        self.pulled += 1
+        idx, part = self.queue.get()
+        lo, hi, _ = self.shard.indices(len(idx))
+        if (lo, hi) == (0, len(idx)):
+            return part
+        rest = self._decode(self._submit(np.concatenate([idx[:lo], idx[hi:]])))
+        return np.concatenate([rest[:lo], part, rest[lo:]])
+
+    def skip(self, n: int) -> None:
+        """Drop the next ``n`` batches."""
+        for _ in range(n):
+            self.next_shard()
 
     def close(self):
         self._stop.set()
@@ -108,16 +148,16 @@ class StepBatchLoader:
 
     def __init__(self, dataset, batch_size: int, accum: int, seed: int = 0,
                  num_workers: int = 8, weights: Optional[np.ndarray] = None,
-                 need_g_real: bool = False):
+                 need_g_real: bool = False, shard: Optional[slice] = None):
         self.accum = accum
         self.need_g_real = need_g_real
         self.sample_loader = SampleLoader(
             dataset, batch_size, seed=seed, num_workers=num_workers, weights=weights,
-            prefetch=2 * (3 + int(need_g_real)) * accum,
+            prefetch=2 * (3 + int(need_g_real)) * accum, shard=shard,
         )
 
     def _stack(self, n: int) -> np.ndarray:
-        return np.stack([next(self.sample_loader) for _ in range(n)])
+        return np.stack([self.sample_loader.next_shard() for _ in range(n)])
 
     def __next__(self) -> Dict[str, np.ndarray]:
         batch = {

@@ -65,11 +65,12 @@ def to_host_async(t: torch.Tensor) -> torch.Tensor:
 
 def map_tensors(tree, fn: Callable[[torch.Tensor], Any]):
     """``tree`` with ``fn`` applied to every tensor in its dicts, lists and
-    tuples; other leaves stay."""
+    tuples (named ones too); other leaves stay."""
     if torch.is_tensor(tree):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: map_tensors(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_tensors(v, fn) for v in tree)
+        parts = [map_tensors(v, fn) for v in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else type(tree)(parts)
     return tree

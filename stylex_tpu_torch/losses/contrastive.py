@@ -12,7 +12,7 @@ test can pass in the JAX package's draws.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,12 +49,18 @@ def contrastive_views(images: torch.Tensor, views: Views) -> Tuple[torch.Tensor,
 
 
 def contrastive_d_loss(feature_fn: Callable[[torch.Tensor], torch.Tensor], images: torch.Tensor,
-                       views: Views, groups: int = 1, temperature: float = 0.1) -> torch.Tensor:
+                       views: Views, groups: int = 1, temperature: float = 0.1,
+                       gather: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                       ) -> torch.Tensor:
     """NT-Xent over the features of two views of ``images``, within each of
     ``groups`` equal consecutive groups (micro-batches), averaged. One
-    ``feature_fn`` pass takes both views of every group."""
+    ``feature_fn`` pass takes both views of every group. ``gather`` maps
+    this rank's (groups, b, D) features to the whole micro-batches' (groups,
+    B, D) where the images are one rank's slice of each group."""
     v1, v2 = contrastive_views(images, views)
     feats = feature_fn(torch.cat([v1, v2]))
     f1, f2 = feats.chunk(2)
     f1, f2 = f1.reshape(groups, -1, f1.shape[-1]), f2.reshape(groups, -1, f2.shape[-1])
+    if gather is not None:
+        f1, f2 = gather(f1), gather(f2)
     return torch.stack([nt_xent_loss(f1[i], f2[i], temperature) for i in range(groups)]).mean()

@@ -120,7 +120,7 @@ class DiscriminatorE(nn.Module):
 
     def forward(self, x: torch.Tensor, probabilities: Optional[torch.Tensor] = None, *,
                 return_features: bool = False, return_q_loss: bool = False,
-                update_vq: bool = False):
+                update_vq: bool = False, vq_reduce=None):
         """(B, 3, S, S) images in [0, 1] -> (B,) critic scores for
         'disc'/'cond_disc' (the latter weighted by ``probabilities``), or
         (B, encoder_dim) for 'encoder'.
@@ -129,7 +129,8 @@ class DiscriminatorE(nn.Module):
         instead of the head's output (the contrastive regulariser's input).
         ``return_q_loss``: also return the sum of the quantize layers'
         commitment losses (0 without ``fq_layers``). ``update_vq``: apply
-        the codebooks' EMA update from this batch.
+        the codebooks' EMA update from this batch, its statistics summed by
+        ``vq_reduce`` (the ranks' sum, where each holds a slice).
         """
         q_loss = x.new_zeros(())
         for block, attn, vq in zip(self.blocks, self.attn_blocks, self.quantize_blocks):
@@ -137,7 +138,7 @@ class DiscriminatorE(nn.Module):
             if attn is not None:
                 x = attn(x)
             if vq is not None:
-                x, loss = vq(x, update=update_vq)
+                x, loss = vq(x, update=update_vq, reduce=vq_reduce)
                 q_loss = q_loss + loss
         out = self.final_conv(x).flatten(1)  # (B, C*2*2), torch's order
         if not return_features:

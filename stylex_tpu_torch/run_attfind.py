@@ -19,6 +19,14 @@ With ``--visualize-top N`` it then renders the counterfactual panel of each
 of the top N styles (``visualize_style``: images whose effect exceeds 0.1,
 at least one) and saves each that passes as ``style_<direction>_<sindex>.png``
 beside the records, as the JAX package's CLI does.
+
+The sweep is split over data-parallel ranks as the JAX CLI shards it over
+its trainer's mesh: over the largest count of GPUs present that divides
+the training batch size (``TrainConfig().batch_size``), one process per
+GPU. With one device (one GPU, an indexed ``--device cuda:N``, or
+``--device cpu``) it runs in this process, with no process group. Every
+rank computes the same records; rank 0 writes them, the ranking and the
+panels.
 """
 
 from __future__ import annotations
@@ -32,8 +40,9 @@ import numpy as np
 import torch
 
 
-def main(argv=None) -> None:
-    from stylex_tpu_torch.replay_results import add_model_args, load_model
+def parse_args(argv=None) -> argparse.Namespace:
+    """The CLI's flags, checked."""
+    from stylex_tpu_torch.replay_results import add_model_args
 
     p = argparse.ArgumentParser(description="StylEx AttFind attribute discovery (PyTorch)")
     add_model_args(p)
@@ -61,6 +70,28 @@ def main(argv=None) -> None:
     if args.use_discriminator and args.discriminator_threshold is None:
         p.error("--use-discriminator needs --discriminator-threshold "
                 "(the reference uses -0.5 for the plant model)")
+    if args.name is None and args.checkpoint is None:
+        p.error("a model is needed: --name, or --checkpoint with --config")
+    return args
+
+
+def main(argv=None) -> list:
+    """Run the CLI. Returns each rank's ``seconds`` of extraction,
+    ``styles`` (perturbed forwards) and kernel ``launches``."""
+    from stylex_tpu_torch.config import TrainConfig
+    from stylex_tpu_torch.parallel import launch, make_mesh, resolve_num_devices
+
+    args = parse_args(argv)
+    n = resolve_num_devices(None, TrainConfig().batch_size, args.device)
+    if n > 1:
+        return launch(extract, n, args.device, args=(args,))
+    return [extract(make_mesh(1, args.device), args)]
+
+
+def extract(mesh, args: argparse.Namespace) -> dict:
+    """The extraction, ranking and outputs on one rank of ``mesh`` (every
+    rank of a launched group calls it with the same ``args``)."""
+    from stylex_tpu_torch.replay_results import load_model
 
     from stylex_tpu_torch.attfind import (
         attfind_extraction,
@@ -72,13 +103,12 @@ def main(argv=None) -> None:
     )
     from stylex_tpu_torch.data import FolderDataset, SyntheticImageDataset
     from stylex_tpu_torch.device import resolve_dtype
+    from stylex_tpu_torch.ops import LAUNCHES
     from stylex_tpu_torch.ops.latents import image_noise
 
+    args.device = str(mesh.device)
     dtype = resolve_dtype(args.dtype)
-    loaded = load_model(args, ship_ema=False, param_dtype=dtype)
-    if loaded is None:
-        p.error("a model is needed: --name, or --checkpoint with --config")
-    model, clf = loaded
+    model, clf = load_model(args, ship_ema=False, param_dtype=dtype)
     clf.to(dtype)
     cfg = model.cfg
     device = next(model.G.parameters()).device
@@ -105,11 +135,16 @@ def main(argv=None) -> None:
         block_resume=not args.no_block_resume,
         compute_dtype=dtype,
         chunks_per_dispatch=args.chunks_per_dispatch,
+        mesh=mesh,
     )
     dt = time.perf_counter() - t0
     total = records.style_change.shape[0] * 2 * records.style_change.shape[2]
+    summary = dict(rank=mesh.rank, seconds=dt, styles=total, launches=dict(LAUNCHES))
+    if mesh.rank != 0:
+        return summary
     print(f"AttFind sweep: {total} perturbed forwards in {dt:.3f}s = {total / dt:.1f} styles/s "
-          f"on {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
+          f"on {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}"
+          f" x {mesh.world_size} rank(s)")
 
     out = Path(args.results_folder)
     out.mkdir(parents=True, exist_ok=True)
@@ -135,6 +170,7 @@ def main(argv=None) -> None:
             from PIL import Image
 
             Image.fromarray(panel).save(out / f"style_{direction}_{sindex}.png")
+    return summary
 
 
 if __name__ == "__main__":

@@ -29,6 +29,16 @@ Micro-batches alternate prior (even) and encoder (odd) inputs, as the
 reference's loop does; rec/KL are doubled under the alternation (and always
 in the OLD arch). A*B samples are flattened micro-batch-major.
 
+With a ``mesh`` of several ranks (:mod:`stylex_tpu_torch.parallel`) each rank
+takes its contiguous slice of every micro-batch's B images and of the
+step's global draws, and the step computes what one process computes on the
+whole batch: the per-sample values that a loss couples or averages (D
+scores, path lengths, the contrastive features) are gathered, the
+per-sample means (GP, rec, KL, the commitment loss) are averaged over the
+ranks' equal shares, every rank computes the same global losses, and each
+phase's gradients are summed over the ranks in one bucket before its
+optimizer step. The quantize layers' EMA update sums the ranks' statistics.
+
 Gradients come from ``torch.autograd.grad`` over explicit parameter lists;
 the frozen classifier and the EMA copies take none. Both penalties are
 second-order, so their gradients differentiate through the kernels'
@@ -48,6 +58,7 @@ classifier in float64.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -55,7 +66,7 @@ import torch
 from torch.func import functional_call
 
 from stylex_tpu_torch.config import Arch, ModelConfig, TrainConfig
-from stylex_tpu_torch.device import resolve_dtype
+from stylex_tpu_torch.device import map_tensors, resolve_dtype
 from stylex_tpu_torch.losses import (
     classifier_kl_loss,
     d_hinge_loss,
@@ -67,6 +78,13 @@ from stylex_tpu_torch.losses import (
 from stylex_tpu_torch.losses.contrastive import contrastive_d_loss, draw_views
 from stylex_tpu_torch.models.stylex import ema_update, make_w
 from stylex_tpu_torch.ops.diffaug import AugmentDraws, augment_for_discriminator, draw_augment
+from stylex_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    all_reduce_grads,
+    data_sharding,
+    gather,
+)
 from stylex_tpu_torch.train.state import TrainState, g_parameters
 
 __all__ = [
@@ -75,6 +93,7 @@ __all__ = [
     "draw_step",
     "make_train_step",
     "microbatch_schedule",
+    "shard_draws",
     "step_flags",
 ]
 
@@ -165,12 +184,28 @@ def draw_step(generator: torch.Generator, model_cfg: ModelConfig, train_cfg: Tra
 
 def _take(x, lo: int, hi: int):
     """Rows lo:hi of every tensor in a (nested) tuple of draws; None stays."""
-    if x is None:
-        return None
-    if torch.is_tensor(x):
-        return x[lo:hi]
-    parts = [_take(v, lo, hi) for v in x]
-    return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return map_tensors(x, lambda t: t[lo:hi])
+
+
+def shard_draws(draws: StepDraws, mesh: Mesh, accum: int) -> StepDraws:
+    """This rank's slice of a step's global draws: the (., B, ...) latents
+    and noise along B, the flat (A*B,) DiffAugment and view draws within
+    each of the ``accum`` micro-batches; the per-micro-batch mixing draws
+    whole."""
+    def along_b(x):
+        return x[:, data_sharding(mesh, x.shape[1])]
+
+    def flat(x):
+        x = x.reshape(accum, x.shape[0] // accum, *x.shape[1:])
+        return along_b(x).reshape(-1, *x.shape[2:])
+
+    def phase(dr: PhaseDraws) -> PhaseDraws:
+        return dr._replace(z1=along_b(dr.z1), z2=along_b(dr.z2), noise=along_b(dr.noise),
+                           pl_noise=map_tensors(dr.pl_noise, along_b),
+                           **{k: map_tensors(getattr(dr, k), flat)
+                              for k in ("aug_fake", "aug_real", "cl_real", "cl_fake")})
+
+    return StepDraws(phase(draws.d), phase(draws.g))
 
 
 def _micro_draws(dr: PhaseDraws, i: int, B: int, prior_pos: Optional[int]) -> PhaseDraws:
@@ -234,7 +269,7 @@ def _add(acc, grads, scale: float):
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                     classifier_fn: Callable[[torch.Tensor], torch.Tensor], lpips_params,
-                    aug_prob: Optional[float] = None):
+                    aug_prob: Optional[float] = None, mesh: Optional[Mesh] = None):
     """Build ``step(state, batch, draws) -> metrics``.
 
     ``batch`` holds (A, B, S, S, C) NHWC image stacks, uint8 or float in
@@ -245,6 +280,11 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     ``kl_loss``, ``gp``, ``pl_mean``, and ``q_loss`` with ``fq_layers``,
     ``cr_loss`` with ``cl_reg``. ``aug_prob`` overrides the config's (None
     there means 0).
+
+    With a ``mesh`` of several ranks, ``batch`` is this rank's slice of the
+    global batch along B (:func:`~stylex_tpu_torch.parallel.shard_batch`)
+    and ``draws`` the step's global draws, the same on every rank; the
+    metrics are the global step's, equal on every rank.
     """
     cfg, tc = model_cfg, train_cfg
     A = tc.gradient_accumulate_every
@@ -258,6 +298,17 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     aug_types = tuple(tc.aug_types)
     if aug_prob is None:
         aug_prob = tc.aug_prob if tc.aug_prob is not None else 0.0
+    ranks = 1 if mesh is None else mesh.world_size
+    if mesh is not None and mesh.group is None:
+        mesh = None  # the single process
+
+    def across(x):
+        """(n, b, ...) per-sample values of this rank -> (n, B, ...)."""
+        return gather(x, mesh, dim=1)
+
+    def mean_across(x):
+        """A mean over this rank's share of the batch -> over the batch."""
+        return x if mesh is None else gather(x.reshape(1), mesh).mean()
 
     def classify(x):
         return classifier_fn(x.to(wide)).to(wide)
@@ -337,8 +388,9 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         scores, q_loss = scores.to(wide), q_loss.to(wide)
         # each commitment loss is a mean over the 2nB batch: x2 gives the
         # fake pass's plus the real pass's
-        q_loss = 2.0 * q_loss
-        fake_s, real_s = scores[:n * B].reshape(n, B), scores[n * B:].reshape(n, B)
+        q_loss = mean_across(2.0 * q_loss)
+        fake_s = across(scores[:n * B].reshape(n, B))
+        real_s = across(scores[n * B:].reshape(n, B))
         r, f = real_s, fake_s
         if tc.rel_disc_loss:  # per-micro-batch means
             r = real_s - fake_s.mean(dim=1, keepdim=True)
@@ -350,15 +402,19 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         zero = torch.zeros((), dtype=wide, device=div.device)
         gp = zero
         if flags["gp"]:
-            gp = gradient_penalty(lambda im: D(augment(im, dr.aug_real), probs_flat), real_flat)
+            gp = mean_across(gradient_penalty(lambda im: D(augment(im, dr.aug_real), probs_flat),
+                                              real_flat))
         cr = zero
         if tc.cl_reg:
             def features(im):
                 return D(im, return_features=True)
 
-            cr = contrastive_d_loss(features, real_flat.to(dtype), dr.cl_real, n).to(wide)
+            gather_fn = None if mesh is None else across
+            cr = contrastive_d_loss(features, real_flat.to(dtype), dr.cl_real, n,
+                                    gather=gather_fn).to(wide)
             if flags["cl_gen"]:
-                cr = cr + contrastive_d_loss(features, fake, dr.cl_fake, n).to(wide)
+                cr = cr + contrastive_d_loss(features, fake, dr.cl_fake, n,
+                                             gather=gather_fn).to(wide)
         d_grads = torch.autograd.grad(div + gp + q_loss + cr, list(model.D.parameters()))
 
         gside = None
@@ -371,8 +427,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
             rec = tc.rec_scaling * reconstruction_loss(
                 lpips_params, enc_imgs, fake2, model.encoder(fake2), enc_out)
             kl = tc.kl_scaling * classifier_kl_loss(enc_logits, classify(fake2))
-            gside = torch.autograd.grad((rec + kl) * (len(enc_idx) / n), g_parameters(model),
-                                        allow_unused=True)
+            gside = torch.autograd.grad(mean_across(rec + kl) * (len(enc_idx) / n),
+                                        g_parameters(model), allow_unused=True)
         losses = dict(d_loss=div, gp=gp, q_loss=q_loss, cr_loss=cr)
         return d_grads, gside, {k: v.detach() for k, v in losses.items()}
 
@@ -390,26 +446,26 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                                                           sched)
         w_flat, noise_flat = _flat(w_all), _flat(dr.noise)
         fake = nets["G"](w_flat, noise_flat)[0]
-        fake_s = nets["D"](augment(fake, dr.aug_fake), probs_flat).to(wide).reshape(n, B)
+        fake_s = across(nets["D"](augment(fake, dr.aug_fake), probs_flat).to(wide).reshape(n, B))
 
         if tc.dual_contrast_loss:
             with torch.no_grad():
-                real_s = nets["D"](augment(_flat(imgs["g_real"]), dr.aug_real),
-                                   probs_flat).to(wide).reshape(n, B)
+                real_s = across(nets["D"](augment(_flat(imgs["g_real"]), dr.aug_real),
+                                          probs_flat).to(wide).reshape(n, B))
             gen = torch.stack([dual_contrastive_loss(fake_s[i], real_s[i])
                                for i in range(n)]).mean()
         else:
             # per-micro-batch top-k: the k smallest scores
             ranked = fake_s.sort(dim=1).values
-            keep = (torch.arange(B, device=ranked.device) < top_k).to(ranked.dtype)
+            keep = (torch.arange(ranked.shape[1], device=ranked.device) < top_k).to(ranked.dtype)
             gen = ((ranked * keep).sum(dim=1) / max(top_k, 1)).mean()
 
         pl_pen = pl_len = zero
         if flags["pl"]:
             if dr.pl_noise is None:
                 raise ValueError("a path-length step needs draws.g.pl_noise")
-            lengths = path_lengths(lambda w: nets["G"](w, noise_flat)[0], w_flat,
-                                   _flat(dr.pl_noise)).to(wide).reshape(n, B)
+            lengths = across(path_lengths(lambda w: nets["G"](w, noise_flat)[0], w_flat,
+                                          _flat(dr.pl_noise)).to(wide).reshape(n, B))
             pens = (lengths - state.pl_mean).square().mean(dim=1)
             pl_pen = torch.where(state.pl_mean >= 0, pens, torch.zeros_like(pens)).mean()
             pl_len = lengths[-1].mean().detach()  # the last micro-batch's mean length
@@ -418,9 +474,9 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         if enc_idx:
             fake_enc = _flat(fake.reshape(n, B, *fake.shape[1:])[enc_idx])
             scale = len(enc_idx) / n
-            rec = eff_rec * scale * reconstruction_loss(
-                lpips_params, enc_imgs, fake_enc, nets["encoder"](fake_enc), enc_out)
-            kl = eff_kl * scale * classifier_kl_loss(enc_logits, classify(fake_enc))
+            rec = eff_rec * scale * mean_across(reconstruction_loss(
+                lpips_params, enc_imgs, fake_enc, nets["encoder"](fake_enc), enc_out))
+            kl = eff_kl * scale * mean_across(classifier_kl_loss(enc_logits, classify(fake_enc)))
 
         grads = torch.autograd.grad(gen + pl_pen + rec + kl, g_parameters(model),
                                     allow_unused=True)
@@ -436,10 +492,11 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 _micro_draws(dr, i, B, None if schedule[i] else prior_pos), [schedule[i]])
 
     def run_d(state, imgs, dr: PhaseDraws, flags):
-        """(D gradients, encoder/S/G gradients from the D phase or None,
-        losses)."""
+        """(D gradients summed over the ranks, this rank's encoder/S/G
+        gradients from the D phase or None, losses)."""
         if tc.fused_microbatches:
-            return d_phase(state, imgs, dr, schedule, flags)
+            d_grads, gside, losses = d_phase(state, imgs, dr, schedule, flags)
+            return all_reduce_grads(d_grads, mesh), gside, losses
         d_grads = gside = None
         losses: Dict[str, torch.Tensor] = {}
         for i in range(A):
@@ -448,20 +505,20 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
             if side is not None:
                 gside = _add(gside, side, 1.0 / A)
             losses = {k: losses.get(k, 0.0) + v / A for k, v in part.items()}
-        return d_grads, gside, losses
+        return all_reduce_grads(d_grads, mesh), gside, losses
 
     def run_g(state, imgs, dr: PhaseDraws, flags, top_k: int, gside):
-        """(encoder/S/G gradients, gside added; losses; the last
-        micro-batch's mean path length)."""
+        """(encoder/S/G gradients, gside added, summed over the ranks;
+        losses; the last micro-batch's mean path length)."""
         if tc.fused_microbatches:
             grads, losses, pl_len = g_phase(state, imgs, dr, schedule, flags, top_k)
-            return _add(gside, grads, 1.0), losses, pl_len
+            return all_reduce_grads(_add(gside, grads, 1.0), mesh), losses, pl_len
         g_grads, losses, pl_len = gside, {}, None
         for i in range(A):
             grads, part, pl_len = g_phase(state, *scan_micro(imgs, dr, i), flags, top_k)
             g_grads = _add(g_grads, grads, 1.0 / A)
             losses = {k: losses.get(k, 0.0) + v / A for k, v in part.items()}
-        return g_grads, losses, pl_len
+        return all_reduce_grads(g_grads, mesh), losses, pl_len
 
     @torch.no_grad()
     def update_codebooks(model, imgs):
@@ -473,9 +530,11 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         if new:
             uniform = last_real.new_full((last_real.shape[0], cfg.num_classes),
                                          1.0 / cfg.num_classes)
-        model.D(last_real, uniform, update_vq=True)
+        ranks_sum = functools.partial(all_reduce_, mesh=mesh)  # the statistics' sum
+        model.D(last_real, uniform, update_vq=True, vq_reduce=ranks_sum)
         if cfg.encoder_class is None:
-            model.encoder(imgs["d_enc"][-1].to(torch.float32), update_vq=True)
+            model.encoder(imgs["d_enc"][-1].to(torch.float32), update_vq=True,
+                          vq_reduce=ranks_sum)
 
     # ------------------------------------------------------------ full step
     def step(state: TrainState, batch, draws: StepDraws) -> Dict[str, torch.Tensor]:
@@ -484,7 +543,9 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         keys = ("d_real", "d_enc", "g_imgs") + (("g_real",) if tc.dual_contrast_loss else ())
         imgs = {k: _images(batch[k], dev, wide) for k in keys}
         flags = step_flags(tc, state.step)
-        top_k = int(batch.get("top_k", imgs["g_imgs"].shape[1]))
+        top_k = int(batch.get("top_k", imgs["g_imgs"].shape[1] * ranks))
+        if mesh is not None:
+            draws = shard_draws(draws, mesh, A)
 
         d_grads, gside, d_losses = run_d(state, imgs, draws.d, flags)
         _apply_grads(state.d_opt, list(model.D.parameters()), d_grads)

@@ -36,6 +36,20 @@ Checkpoints go through an
 :class:`~stylex_tpu_torch.utils.checkpoint.AsyncCheckpointWriter` with
 ``async_save``. ``train()`` returns the latest metrics read and the
 :class:`~stylex_tpu_torch.utils.profiling.StepTimer`'s rates.
+
+Data parallelism: built inside a worker of
+:func:`stylex_tpu_torch.parallel.launch`, the trainer is one rank of the
+group (``num_devices``, when set, must be its size; built outside one,
+``num_devices`` above 1 raises). Every rank builds the same model, draws the
+same global index order and step draws, and loads its slice of each
+micro-batch; the step gathers where the losses couple the samples and sums
+the gradients (:func:`~stylex_tpu_torch.train.steps.make_train_step`), so
+the ranks' states and metrics stay equal. Rank 0 alone writes the config,
+the metrics CSV, TensorBoard, checkpoints, sample grids, FID and GIFs; every
+save ends at a barrier, every load starts at one and broadcasts rank 0's
+state. With several ranks on GPUs a queued block of metrics is read only
+when the lag forces it (never on a copy's landing, which differs between
+ranks), so that every rank meets a NaN at the same step.
 """
 
 from __future__ import annotations
@@ -59,7 +73,7 @@ from stylex_tpu_torch.data import (
     as_float01,
     balanced_class_weights,
 )
-from stylex_tpu_torch.device import resolve_device, set_float32_precision, to_host_async
+from stylex_tpu_torch.device import set_float32_precision, to_host_async
 from stylex_tpu_torch.eval.fid import compute_feature_stats, frechet_distance, resolve_feature_fn
 from stylex_tpu_torch.models.classifiers import build_classifier
 from stylex_tpu_torch.models.lpips import init_lpips_params, load_lpips_params
@@ -72,10 +86,12 @@ from stylex_tpu_torch.ops.latents import (
     slerp,
     truncate_w,
 )
+from stylex_tpu_torch.parallel.mesh import data_sharding, make_mesh, replicated
 from stylex_tpu_torch.train.state import TrainState, create_train_state
 from stylex_tpu_torch.train.steps import StepDraws, draw_step, make_train_step
 from stylex_tpu_torch.utils.checkpoint import (
     AsyncCheckpointWriter,
+    checkpoint_path,
     find_checkpoint,
     latest_checkpoint,
     load_any_checkpoint,
@@ -130,15 +146,18 @@ class Trainer:
                  classifier_path: Optional[str] = None, lpips_path: Optional[str] = None,
                  seed: int = 42, clear_fid_cache: bool = False,
                  tensorboard_dir: Optional[str] = None, device=None):
-        self.device = resolve_device(device)
+        self.model_cfg = model_cfg or ModelConfig()
+        self.train_cfg = train_cfg or TrainConfig()
+        # in a launched worker, its rank (and the rank's device)
+        self.mesh = make_mesh(self.train_cfg.num_devices, device)
+        self.device = self.mesh.device
+        self.is_main = self.mesh.rank == 0
         self.name = name
         base = Path(base_dir)
         self.results_dir = base / results_dir
         self.models_dir = base / models_dir
         self.fid_dir = base / "fid" / name
         self.config_path = self.models_dir / name / ".config.json"
-        self.model_cfg = model_cfg or ModelConfig()
-        self.train_cfg = train_cfg or TrainConfig()
         if not math.log2(self.model_cfg.image_size).is_integer():
             raise ValueError("image size must be a power of 2")
         if self.train_cfg.compute_dtype == "float32":
@@ -162,7 +181,8 @@ class Trainer:
         self.clear_fid_cache = clear_fid_cache
         self.last_fid: Optional[float] = None
         self.logger = MetricLogger(str(self.results_dir / name / "metrics.csv"),
-                                   tensorboard_dir=tensorboard_dir, name=name)
+                                   tensorboard_dir=tensorboard_dir, name=name) \
+            if self.is_main else MetricLogger()
         self._pending: deque = deque()  # _Pending blocks, oldest first
         self._last_metrics: Dict[str, float] = {}
         self._ckpt_writer = AsyncCheckpointWriter()
@@ -191,6 +211,7 @@ class Trainer:
         if self.state is not None:
             return
         model = build_stylex(self.model_cfg, seed=self.seed, device=self.device)
+        replicated(self.mesh, model)
         self.state = create_train_state(model, self.model_cfg, self.train_cfg)
         self._build_step_fn()
         self.write_config()
@@ -198,7 +219,7 @@ class Trainer:
     def _build_step_fn(self) -> None:
         self._step_fn = make_train_step(self.model_cfg, self.train_cfg,
                                         self.classifier.classify_images, self.lpips_params,
-                                        aug_prob=self.aug_prob or 0.0)
+                                        aug_prob=self.aug_prob or 0.0, mesh=self.mesh)
 
     def init_folders(self) -> None:
         (self.results_dir / self.name).mkdir(parents=True, exist_ok=True)
@@ -206,12 +227,15 @@ class Trainer:
 
     def clear(self) -> None:
         self._ckpt_writer.wait()  # a write in flight would bring a file back
-        for d in (self.models_dir / self.name, self.results_dir / self.name, self.fid_dir):
-            shutil.rmtree(d, ignore_errors=True)
+        if self.is_main:
+            for d in (self.models_dir / self.name, self.results_dir / self.name, self.fid_dir):
+                shutil.rmtree(d, ignore_errors=True)
+        self.mesh.barrier()
         self.init_folders()
 
     def write_config(self) -> None:
-        self.config_path.write_text(self.model_cfg.to_json())
+        if self.is_main:
+            self.config_path.write_text(self.model_cfg.to_json())
 
     def load_config(self) -> None:
         if not self.config_path.exists():
@@ -241,7 +265,8 @@ class Trainer:
             self.loader.close()
         self.loader = StepBatchLoader(self.dataset, tc.batch_size, tc.gradient_accumulate_every,
                                       seed=self.seed, weights=weights,
-                                      need_g_real=tc.dual_contrast_loss, **kwargs)
+                                      need_g_real=tc.dual_contrast_loss,
+                                      shard=data_sharding(self.mesh, tc.batch_size), **kwargs)
         if self.aug_prob is None and len(self.dataset) < 1e5:
             self.aug_prob = min(0.5, (1e5 - len(self.dataset)) * 3e-6)
             print(f"autosetting augmentation probability to {round(self.aug_prob * 100)}%")
@@ -322,14 +347,35 @@ class Trainer:
 
         if last % tc.save_every == 0:
             self.save(last // tc.save_every)
-        if last % tc.evaluate_every == 0 or (last % 100 == 0 and last < 2500):
+        evaluate = last % tc.evaluate_every == 0 or (last % 100 == 0 and last < 2500)
+        fid = tc.calculate_fid_every is not None and last % tc.calculate_fid_every == 0 and last != 0
+        if evaluate and self.is_main:
             self.evaluate(encoder_input=tc.sample_from_encoder, num=last // tc.evaluate_every)
-        if tc.calculate_fid_every is not None and last % tc.calculate_fid_every == 0 and last != 0:
+        if fid and self.is_main:
             num_batches = math.ceil(tc.calculate_fid_num_images / tc.batch_size)
             self.last_fid = self.calculate_fid(num_batches)
             with open(self.results_dir / self.name / "fid_scores.txt", "a") as f:
                 f.write(f"{last},{self.last_fid}\n")
+        if evaluate or fid:
+            self._sync_loader()
         return out
+
+    def _sync_loader(self) -> None:
+        """Rank 0's evaluation and FID took real batches from the loader's
+        stream; the other ranks drop as many, so that every rank's next
+        batch is the same one."""
+        if self.mesh.group is None:
+            return
+        samples = self.loader.sample_loader
+        pulled = torch.tensor([samples.pulled], dtype=torch.int64, device=self.device)
+        replicated(self.mesh, pulled)
+        samples.skip(int(pulled) - samples.pulled)
+
+    def _landed(self, block: _Pending) -> bool:
+        """Whether a queued block can be read without waiting. GPU ranks'
+        copies land at different times, so across them the lag alone
+        decides, the same on every rank."""
+        return block.ready() if self.mesh.group is None or block.event is None else False
 
     def _drain(self, lag: int, reload_on_nan: bool = True) -> None:
         """Read, log and NaN-check queued blocks: every block whose copy has
@@ -337,7 +383,7 @@ class Trainer:
         non-finite ``g_loss`` or ``d_loss`` drops the queue and, with
         ``reload_on_nan``, reloads the latest checkpoint and raises
         :class:`NanException`; without it, stops logging there."""
-        while self._pending and (len(self._pending) > lag or self._pending[0].ready()):
+        while self._pending and (len(self._pending) > lag or self._landed(self._pending[0])):
             block = self._pending.popleft()
             for i, metrics in enumerate(block.read()):
                 if not (math.isfinite(metrics["g_loss"]) and math.isfinite(metrics["d_loss"])):
@@ -355,15 +401,19 @@ class Trainer:
     def save(self, num: int) -> str:
         """Checkpoint ``num`` of the current state, after reading every
         queued metric (a NaN state is never saved); in the background with
-        ``async_save``. Returns the file's path."""
+        ``async_save``; written by rank 0, every rank meeting at a barrier
+        after. Returns the file's path."""
         self._drain(0)
         self.write_config()
         extra = {"version": __version__}
-        if self.train_cfg.async_save:
-            return self._ckpt_writer.submit(str(self.models_dir), self.name, num, self.state,
-                                            extra=extra)
-        self._ckpt_writer.wait()
-        return save_checkpoint(str(self.models_dir), self.name, num, self.state, extra=extra)
+        if self.is_main and self.train_cfg.async_save:
+            self._ckpt_writer.submit(str(self.models_dir), self.name, num, self.state,
+                                     extra=extra)
+        elif self.is_main:
+            self._ckpt_writer.wait()
+            save_checkpoint(str(self.models_dir), self.name, num, self.state, extra=extra)
+        self.mesh.barrier()
+        return str(checkpoint_path(str(self.models_dir), self.name, num))
 
     def flush(self) -> None:
         """Read, log and NaN-check every queued metric and join the
@@ -386,9 +436,11 @@ class Trainer:
 
         The metrics in flight are logged first (up to a non-finite step, if
         any) and the checkpoint writer is joined: a save in flight may be the
-        file read here."""
+        file read here. Every rank loads, after a barrier that rank 0's
+        writes precede; a full load then broadcasts rank 0's state."""
         self._drain(0, reload_on_nan=False)
         self._ckpt_writer.wait()
+        self.mesh.barrier()
         self.load_config()
         if num == -1:
             found = latest_checkpoint(str(self.models_dir), self.name)
@@ -408,6 +460,9 @@ class Trainer:
                 self.state = None
             self.init_stylex()
             load_any_checkpoint(path, self.state)
+            replicated(self.mesh, [self.state.model, self.state.pl_mean,
+                                   [list(opt.state.values())
+                                    for opt in (self.state.g_opt, self.state.d_opt)]])
         self._inference_only = inference
         if self.state.step == 0:
             self.state.step = num * self.train_cfg.save_every

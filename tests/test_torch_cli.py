@@ -22,6 +22,7 @@ from stylex_tpu_torch.models import build_classifier, build_stylex, discriminato
 from stylex_tpu_torch.models import generator as t_gen
 from stylex_tpu_torch.models.convert import load_reference_checkpoint
 from stylex_tpu_torch.models.stylex import StylEx
+from stylex_tpu_torch.parallel import launch
 
 torch.set_num_threads(2)
 
@@ -105,6 +106,33 @@ def test_reference_checkpoint_loads_and_drops_non_model_keys(tmp_path):
     assert set(load_reference_checkpoint(str(tmp_path / "bare.pt"))) == set(sd)
 
 
+def test_cli_splits_attfind_over_two_host_ranks(tmp_path):
+    """``run_attfind``'s sweep on two host ranks: rank 0 writes the
+    records, equal to the one process's within rtol 1e-4, atol 1e-5 (the
+    ranks run on other torch thread counts, which sum the CPU convolutions
+    in other orders; each rank sweeps its slice of every chunk, 63 rounded
+    up to 64, the last one padded)."""
+    cfg = ModelConfig(**TINY)
+    ckpt, config = tmp_path / "model_1.pt", tmp_path / ".config.json"
+    torch.save({"StylEx": build_stylex(cfg, seed=2, device="cpu").state_dict()}, ckpt)
+    config.write_text(cfg.to_json())
+    argv = ["--checkpoint", str(ckpt), "--config", str(config), "--classifier-name",
+            "mobilenet", "--dataset-name", "synthetic", "--num-images", "2", "--coord-batch",
+            "63", "--device", "cpu"]
+    one = run_attfind.main(argv + ["--results-folder", str(tmp_path / "one")])
+    # the CLI's rank function, as main launches it where two GPUs are present
+    two = launch(run_attfind.extract, 2, "cpu",
+                 args=(run_attfind.parse_args(argv + ["--results-folder", str(tmp_path / "two")]),))
+    assert [r["rank"] for r in two] == [0, 1] and two[0]["styles"] == one[0]["styles"]
+    want = j_load_records(str(tmp_path / "one" / "style_change_records.hdf5"))
+    got = j_load_records(str(tmp_path / "two" / "style_change_records.hdf5"))
+    for f in ("style_change", "latents", "base_prob", "style_coordinates", "discriminator"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f), rtol=1e-4, atol=1e-5,
+                                   err_msg=f)
+    assert json.loads((tmp_path / "two" / "top_styles.json").read_text()) == json.loads(
+        (tmp_path / "one" / "top_styles.json").read_text())
+
+
 @pytest.mark.parametrize("resume", [True, False])
 def test_cli_runs_attfind_on_cpu(tmp_path, capsys, resume):
     cfg = ModelConfig(**TINY)
@@ -149,3 +177,39 @@ def test_cli_trains_with_attention_no_const_and_cl_reg(tmp_path):
     assert any(k.startswith("G.attns.2.") for k in sd)
     header, *rows = (tmp_path / "r" / "v" / "metrics.csv").read_text().splitlines()
     assert len(rows) == 2 and "cr_loss" in header.split(",")
+
+
+def _tiny_cli_args(tmp_path, name):
+    return ["--dataset-name", "synthetic", "--device", "cpu", "--image-size", "16",
+            "--network-capacity", "4", "--batch-size", "2", "--gradient-accumulate-every", "2",
+            "--num-train-steps", "2", "--save-every", "1000", "--evaluate-every", "1000",
+            "--classifier-name", "mobilenet", "--num-image-tiles", "2", "--name", name,
+            "--tensorboard-dir", "None", "--results-dir", str(tmp_path / "r"),
+            "--models-dir", str(tmp_path / "m")]
+
+
+def test_cli_trains_on_two_host_ranks(tmp_path, capsys):
+    """``--device cpu --num-devices 2``: two host ranks (gloo) train 2 steps,
+    each on one image of every micro-batch; rank 0 alone writes the
+    metrics (one row a step, the same losses the ranks share) and the one
+    checkpoint. ``--multi-gpus`` is taken and prints the JAX CLI's no-op
+    note."""
+    from stylex_tpu_torch import cli
+
+    cli.main(_tiny_cli_args(tmp_path, "dp") + ["--num-devices", "2", "--multi-gpus"])
+    assert "--multi-gpus is a no-op" in capsys.readouterr().out
+    header, *rows = (tmp_path / "r" / "dp" / "metrics.csv").read_text().splitlines()
+    assert [r.split(",")[0] for r in rows] == ["0", "1"]
+    assert all(np.isfinite(float(v)) for r in rows for v in r.split(",")[1:] if v)
+    assert sorted(p.name for p in (tmp_path / "m" / "dp").iterdir()) == [".config.json",
+                                                                           "model_0.pt"]
+    ckpt = torch.load(tmp_path / "m" / "dp" / "model_0.pt", weights_only=False)
+    assert int(ckpt["step"]) == 2
+
+
+def test_cli_refuses_a_rank_count_that_does_not_divide_the_batch(tmp_path):
+    from stylex_tpu_torch import cli
+
+    with pytest.raises(ValueError, match="does not divide batch_size"):
+        cli.main(_tiny_cli_args(tmp_path, "bad") + ["--num-devices", "3"])
+    assert not (tmp_path / "m" / "bad").exists()

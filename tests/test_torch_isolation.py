@@ -53,8 +53,29 @@ def test_importing_every_module_loads_no_jax():
     for new in ("utils.flax_msgpack", "ingest", "run_counterfactual", "train_classifier",
                 "train.classifier_training", "data.labeled", "data.download", "ingest_tf",
                 "models.google_stylex", "native", "utils.profiling", "utils.timing",
-                "utils.device", "utils.cache"):
+                "utils.device", "utils.cache", "parallel.mesh", "parallel.launch",
+                "testing.harness", "version"):
         assert f"stylex_tpu_torch.{new}" in names, new
+
+
+def test_package_modules_load_without_the_test_scaffolding():
+    """``stylex_tpu_torch.testing`` (the tests' rank functions, which patch
+    ``torch.nn.functional`` and the environment while they run) is imported
+    by no other module of the package."""
+    names = [n for n in _module_names() if not n.startswith("stylex_tpu_torch.testing")]
+    code = (
+        "import importlib, json, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.startswith('stylex_tpu_torch.testing'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(ROOT), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    assert "stylex_tpu_torch.cli" in names and "stylex_tpu_torch.parallel.launch" in names
 
 
 def test_sources_name_no_jax_import():
@@ -115,6 +136,15 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--dataset-name", "synthetic", "--image-size", "16",
                   "--results-dir", str(tmp_path / "r"), "--models-dir", str(tmp_path / "m")])
+    # several ranks on the default device: refused before any rank starts
+    from stylex_tpu_torch.parallel import launch
+    from stylex_tpu_torch.testing import harness
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--dataset-name", "synthetic", "--image-size", "16", "--num-devices", "2",
+                  "--results-dir", str(tmp_path / "r"), "--models-dir", str(tmp_path / "m")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch(harness.run, 2, args=([],))
     trainer = Trainer(base_dir=str(tmp_path), model_cfg=TINY, classifier_name="mobilenet",
                       device="cpu")
     assert trainer.device == torch.device("cpu")

@@ -105,7 +105,8 @@ def test_train_config_reads_the_jax_config_json():
                        num_train_steps=77, aug_types=("color",), calculate_fid_every=9)
     tc = TrainConfig.from_json(jtc.to_json())
     assert (tc.metrics_lag, tc.steps_per_dispatch, tc.async_save, tc.num_train_steps,
-            tc.aug_types, tc.calculate_fid_every) == (3, 5, False, 77, ("color",), 9)
+            tc.aug_types, tc.calculate_fid_every, tc.num_devices) == (3, 5, False, 77,
+                                                                      ("color",), 9, 2)
     assert TrainConfig.from_json(tc.to_json()) == tc
     defaults = TrainConfig()
     assert (defaults.metrics_lag, defaults.steps_per_dispatch, defaults.async_save) == (
@@ -239,9 +240,9 @@ def test_cli_takes_dispatch_flags_and_refuses_multi_device(tmp_path):
     assert (tmp_path / "models" / "default" / "model_0.pt").exists()
     kwargs = cli.parse_argv(["--steps-per-dispatch", "4", "--async-save"])
     assert kwargs == {"steps_per_dispatch": 4, "async_save": True}
-    for flag in ("--num-devices", "--multi-gpus"):
-        with pytest.raises(SystemExit, match="ROADMAP.md .*Parallelism"):
-            cli.parse_argv([flag, "2"])
+    # the multi-device flags are taken since data parallelism is ported
+    assert cli.parse_argv(["--num-devices", "2", "--multi-gpus"]) == {"num_devices": 2,
+                                                                       "multi_gpus": True}
 
 
 @pytest.fixture(scope="module")

@@ -39,6 +39,13 @@ size, a short last chunk is padded, and each copy group's effects are
 gathered once, so that every rank returns the same records, those of one
 process.
 
+The host's work is in spans of :mod:`stylex_tpu_torch.utils.tracing`:
+``attfind.call`` holds ``attfind.phase1``, ``attfind.capture``, one
+``attfind.block`` per generator block (unit: the block) with an
+``attfind.chunk`` per chunk issued and an ``attfind.copy`` per group's
+copy, and ``attfind.records``; ``attfind.wait`` is each synchronise, the
+sweep's closing one and each stage's end.
+
 The records keep the JAX package's layout (NHWC images, the same shapes)
 and the reference's ``style_change_records.hdf5`` schema. Where h5py is
 not installed they go to ``.npz`` with the same datasets:
@@ -49,6 +56,7 @@ not installed they go to ``.npz`` with the same datasets:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -62,6 +70,7 @@ from stylex_tpu_torch.models.stylex import StylEx, make_w
 from stylex_tpu_torch.ops.fusion import prefer_literal_resample
 from stylex_tpu_torch.ops.latents import expand_styles
 from stylex_tpu_torch.parallel.mesh import Mesh, coordinate_sharding, gather, replicated
+from stylex_tpu_torch.utils import tracing
 
 __all__ = [
     "AttFindRecords",
@@ -172,6 +181,23 @@ def _to_nchw(images: np.ndarray, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2))).to(device, dtype)
 
 
+def _wait(device, sync: Callable) -> None:
+    """``sync(device)`` on a GPU, as an ``attfind.wait`` span."""
+    if device.type == "cuda":
+        with tracing.span("attfind.wait"):
+            sync(device)
+
+
+def _call_span(fn):
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with tracing.span("attfind.call"):
+            return fn(*args, **kwargs)
+
+    return call
+
+
+@_call_span
 @torch.no_grad()
 @prefer_literal_resample()
 def attfind_extraction(
@@ -235,8 +261,7 @@ def attfind_extraction(
     stage_walls: Dict[str, float] = {}
 
     def mark(tag: str) -> None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _wait(device, torch.cuda.synchronize)
         stage_walls[tag] = time.perf_counter() - t0
         if progress:
             print(f"attfind[{tag}] +{stage_walls[tag]:.1f}s", flush=True)
@@ -252,15 +277,16 @@ def attfind_extraction(
     capture = block_resume and not use_filter
 
     # ---- phase 1: batched over images
-    parts = []
-    for start in range(0, P, phase1_batch):
-        chunk = _to_nchw(images[start:start + phase1_batch], device, dtype)
-        parts.append(_phase1(model, classifier_fn, chunk, noise_t, capture))
-    w_all, coords_all, d_all, base_all = (torch.cat([p[i] for p in parts]) for i in range(4))
-    states = _cat_states([p[4] for p in parts]) if capture else None
-    del parts
-    if mesh is not None:  # rank 0's phase 1: the filter and records agree
-        replicated(mesh, [w_all, coords_all, d_all, base_all])
+    with tracing.span("attfind.phase1"):
+        parts = []
+        for start in range(0, P, phase1_batch):
+            chunk = _to_nchw(images[start:start + phase1_batch], device, dtype)
+            parts.append(_phase1(model, classifier_fn, chunk, noise_t, capture))
+        w_all, coords_all, d_all, base_all = (torch.cat([p[i] for p in parts]) for i in range(4))
+        states = _cat_states([p[4] for p in parts]) if capture else None
+        del parts
+        if mesh is not None:  # rank 0's phase 1: the filter and records agree
+            replicated(mesh, [w_all, coords_all, d_all, base_all])
     mark("phase1")
 
     keep = np.arange(P)
@@ -296,38 +322,41 @@ def attfind_extraction(
                 part = coordinate_sharding(mesh, n)
                 rows = torch.arange(part.start, part.stop, device=device).clamp(max=n - 1) + s
                 sizes.append(n)
-            group.append(_sweep_chunk(
-                model, classifier_fn, w_all, noise_t, coords_all, minima, maxima, base_all,
-                img[rows], coord[rows], is_max[rows], shift_size, start_block, block_states))
+            with tracing.span("attfind.chunk"):
+                group.append(_sweep_chunk(
+                    model, classifier_fn, w_all, noise_t, coords_all, minima, maxima, base_all,
+                    img[rows], coord[rows], is_max[rows], shift_size, start_block, block_states))
             if len(group) == K or s + coord_batch >= total:
-                effects = torch.cat(group).float()
-                if mesh is not None:
-                    effects = _gather_chunks(effects, sizes, mesh)
-                host.append(to_host_async(effects))
+                with tracing.span("attfind.copy"):
+                    effects = torch.cat(group).float()
+                    if mesh is not None:
+                        effects = _gather_chunks(effects, sizes, mesh)
+                    host.append(to_host_async(effects))
                 group, sizes = [], []
-        if device.type == "cuda":
-            torch.cuda.current_stream(device).synchronize()
+        _wait(device, lambda d: torch.cuda.current_stream(d).synchronize())
         return torch.cat(host).numpy()
 
     C = model.total_style_coords
     if block_resume:
-        if states is None:
-            states = _capture_states(model, w_all, noise_t, phase1_batch)
-        else:
-            states = [(x[:N], None if rgb is None else rgb[:N]) for x, rgb in states]
-        if mesh is not None:
-            replicated(mesh, states)
+        with tracing.span("attfind.capture"):
+            if states is None:
+                states = _capture_states(model, w_all, noise_t, phase1_batch)
+            else:
+                states = [(x[:N], None if rgb is None else rgb[:N]) for x, rgb in states]
+            if mesh is not None:
+                replicated(mesh, states)
         mark("capture_states")
         per_block = []
         offset = 0
         for k, (in_chan, out_chan) in enumerate(model.G.block_dims):
-            size = in_chan + out_chan
-            eff = run_sweep(N * 2 * size, _sweep_ids(N, offset, size, device), k, states[k])
-            per_block.append(eff.reshape(N, 2, size, -1))
-            # block k's states are dead once its group is done
-            states[k] = None
-            offset += size
-            mark(f"block{k}")
+            with tracing.span("attfind.block", unit=k):
+                size = in_chan + out_chan
+                eff = run_sweep(N * 2 * size, _sweep_ids(N, offset, size, device), k, states[k])
+                per_block.append(eff.reshape(N, 2, size, -1))
+                # block k's states are dead once its group is done
+                states[k] = None
+                offset += size
+                mark(f"block{k}")
         style_change = np.concatenate(per_block, axis=2)
     else:
         eff = run_sweep(N * 2 * C, _sweep_ids(N, 0, C, device))
@@ -335,18 +364,19 @@ def attfind_extraction(
         mark("sweep")
 
     host = lambda t: t.float().cpu().numpy()
-    records = AttFindRecords(
-        style_change=style_change.astype(np.float32),
-        latents=host(w_all),
-        base_prob=host(base_all),
-        minima=host(minima),
-        maxima=host(maxima),
-        style_coordinates=host(coords_all),
-        original_images=images[keep],
-        noise=np.asarray(noise, np.float32),
-        discriminator=host(d_all)[:, None],
-        stage_walls=stage_walls,
-    )
+    with tracing.span("attfind.records"):
+        records = AttFindRecords(
+            style_change=style_change.astype(np.float32),
+            latents=host(w_all),
+            base_prob=host(base_all),
+            minima=host(minima),
+            maxima=host(maxima),
+            style_coordinates=host(coords_all),
+            original_images=images[keep],
+            noise=np.asarray(noise, np.float32),
+            discriminator=host(d_all)[:, None],
+            stage_walls=stage_walls,
+        )
     mark("records_fetch")
     return records
 

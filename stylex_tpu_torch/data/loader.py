@@ -10,6 +10,10 @@ class-balanced sampling weights. The same code as the JAX package's
 A rank of a data-parallel group passes ``shard``: it draws the same global
 index order as every other rank and decodes only its slice of each
 micro-batch for training.
+
+Each take from the prefetch queue is a ``train.data_wait`` span of
+:mod:`stylex_tpu_torch.utils.tracing`, counted in ``loader.blocked`` where
+the queue was empty.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+
+from stylex_tpu_torch.utils import tracing
 
 __all__ = ["StepBatchLoader", "balanced_class_weights", "SampleLoader", "as_float01"]
 
@@ -107,15 +113,24 @@ class SampleLoader:
                 except queue.Full:
                     continue
 
+    def _take(self) -> tuple:
+        """The next queued (indices, rows), waiting for the producer where
+        the queue is empty."""
+        self.pulled += 1
+        with tracing.span("train.data_wait"):
+            try:
+                return self.queue.get_nowait()
+            except queue.Empty:
+                tracing.count("loader.blocked")
+                return self.queue.get()
+
     def next_shard(self) -> np.ndarray:
         """The next batch's ``shard`` rows."""
-        self.pulled += 1
-        return self.queue.get()[1]
+        return self._take()[1]
 
     def __next__(self) -> np.ndarray:
         """The next batch, whole."""
-        self.pulled += 1
-        idx, part = self.queue.get()
+        idx, part = self._take()
         lo, hi, _ = self.shard.indices(len(idx))
         if (lo, hi) == (0, len(idx)):
             return part

@@ -25,6 +25,10 @@ float sums, with per-micro-batch draws and penalties.
    (every ``ema_every`` after ``ema_start_step``; reset to the live nets at
    ``step % ema_reset_every == 2`` until ``ema_reset_until``), ``step + 1``.
 
+The three are the spans ``train.d_phase`` (with D's Adam step and the
+codebooks' update), ``train.g_phase`` and ``train.update`` (G's Adam step,
+``pl_mean`` and the EMA copies) of :mod:`stylex_tpu_torch.utils.tracing`.
+
 Micro-batches alternate prior (even) and encoder (odd) inputs, as the
 reference's loop does; rec/KL are doubled under the alternation (and always
 in the OLD arch). A*B samples are flattened micro-batch-major.
@@ -86,6 +90,7 @@ from stylex_tpu_torch.parallel.mesh import (
     gather,
 )
 from stylex_tpu_torch.train.state import TrainState, g_parameters
+from stylex_tpu_torch.utils import tracing
 
 __all__ = [
     "PhaseDraws",
@@ -547,25 +552,28 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         if mesh is not None:
             draws = shard_draws(draws, mesh, A)
 
-        d_grads, gside, d_losses = run_d(state, imgs, draws.d, flags)
-        _apply_grads(state.d_opt, list(model.D.parameters()), d_grads)
-        if cfg.fq_layers:
-            update_codebooks(model, imgs)
+        with tracing.span("train.d_phase"):
+            d_grads, gside, d_losses = run_d(state, imgs, draws.d, flags)
+            _apply_grads(state.d_opt, list(model.D.parameters()), d_grads)
+            if cfg.fq_layers:
+                update_codebooks(model, imgs)
 
-        g_grads, g_losses, pl_len = run_g(state, imgs, draws.g, flags, top_k, gside)
-        params = g_parameters(model)
-        g_grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, g_grads)]
-        _apply_grads(state.g_opt, params, g_grads)
+        with tracing.span("train.g_phase"):
+            g_grads, g_losses, pl_len = run_g(state, imgs, draws.g, flags, top_k, gside)
 
-        if flags["pl"]:
-            state.pl_mean = torch.where(state.pl_mean < 0, pl_len,
-                                        state.pl_mean * 0.99 + 0.01 * pl_len)
-        with torch.no_grad():
-            for live, ema in ((model.S, model.SE), (model.G, model.GE)):
-                if flags["ema_reset"]:
-                    ema.load_state_dict(live.state_dict())
-                elif flags["ema"]:
-                    ema_update(ema, live, tc.ema_beta)
+        with tracing.span("train.update"):
+            params = g_parameters(model)
+            g_grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, g_grads)]
+            _apply_grads(state.g_opt, params, g_grads)
+            if flags["pl"]:
+                state.pl_mean = torch.where(state.pl_mean < 0, pl_len,
+                                            state.pl_mean * 0.99 + 0.01 * pl_len)
+            with torch.no_grad():
+                for live, ema in ((model.S, model.SE), (model.G, model.GE)):
+                    if flags["ema_reset"]:
+                        ema.load_state_dict(live.state_dict())
+                    elif flags["ema"]:
+                        ema_update(ema, live, tc.ema_beta)
         state.step += 1
         metrics = {**{k: d_losses[k] for k in ("d_loss", "gp")}, **g_losses,
                    "pl_mean": state.pl_mean.detach().clone()}

@@ -35,7 +35,18 @@ at most ``max(metrics_lag, k) + k - 1`` steps late for blocks of k steps
 Checkpoints go through an
 :class:`~stylex_tpu_torch.utils.checkpoint.AsyncCheckpointWriter` with
 ``async_save``. ``train()`` returns the latest metrics read and the
-:class:`~stylex_tpu_torch.utils.profiling.StepTimer`'s rates.
+:class:`~stylex_tpu_torch.utils.profiling.StepTimer`'s rates: on a GPU from
+the CUDA events that end the blocks (a block's time is the device's from the
+previous block's event, or from an event recorded before it where the clock
+starts: the first block, and the first after save, evaluate, FID or a load),
+on the CPU from the host's clock around the block.
+
+The host loop's spans (:mod:`stylex_tpu_torch.utils.tracing`): ``train.block``
+per call (attribute ``k``), with ``train.data_wait`` per take from the
+loader's queue, ``train.draws``, ``train.step`` per step (unit: the step
+number; its phases are ``train/steps.py``'s), ``train.drain`` with a
+``train.wait`` where a queued block's copy had not landed, and
+``train.save``, ``train.evaluate``, ``train.fid``.
 
 Data parallelism: built inside a worker of
 :func:`stylex_tpu_torch.parallel.launch`, the trainer is one rank of the
@@ -56,6 +67,7 @@ from __future__ import annotations
 
 import math
 import shutil
+import time
 from collections import deque
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -100,6 +112,7 @@ from stylex_tpu_torch.utils.checkpoint import (
 )
 from stylex_tpu_torch.utils.image import make_grid, save_image_grid, to_uint8
 from stylex_tpu_torch.utils.logging import MetricLogger
+from stylex_tpu_torch.utils import tracing
 from stylex_tpu_torch.utils.profiling import StepTimer
 
 __all__ = ["Trainer", "NanException", "ModelLoader"]
@@ -113,7 +126,7 @@ class _Pending:
     """The metrics of a block of steps from ``step`` on, bound for the host:
     one (steps, keys) float64 tensor (exact for float32 and float64 losses),
     copied into pinned memory without blocking where it lies on a GPU, with
-    an event at the copy's end."""
+    a timing event at the copy's end."""
 
     def __init__(self, step: int, metrics: List[Dict[str, torch.Tensor]], device):
         self.step = step
@@ -124,7 +137,7 @@ class _Pending:
         self.rows = to_host_async(rows)
         self.event = None
         if rows.is_cuda:
-            self.event = torch.cuda.Event()
+            self.event = torch.cuda.Event(enable_timing=True)
             self.event.record()
 
     def ready(self) -> bool:
@@ -133,8 +146,9 @@ class _Pending:
         return self.event is None or self.event.query()
 
     def read(self) -> List[Dict[str, float]]:
-        if self.event is not None:
-            self.event.synchronize()
+        if self.event is not None and not self.event.query():
+            with tracing.span("train.wait"):
+                self.event.synchronize()
         return [dict(zip(self.keys, row)) for row in self.rows.tolist()]
 
 
@@ -323,41 +337,64 @@ class Trainer:
         while (k < limit and not self._is_boundary(step + k - 1)
                and step + k < tc.num_train_steps):
             k += 1
+        with tracing.span("train.block", k=k):
+            return self._block(step, k, draws)
+
+    def _block(self, step: int, k: int, draws: Optional[StepDraws]) -> Dict[str, float]:
+        tc = self.train_cfg
         # the block's batches and draws in sequential order: a k-step block
         # consumes exactly the data and randomness of k one-step calls
-        batches, block_draws = [], []
+        batches = []
         for i in range(k):
             batch = next(self.loader)
             if tc.top_k_training:
                 batch["top_k"] = self._top_k(step + i)
             batches.append(batch)
-            block_draws.append(draws if draws is not None else draw_step(
+        with tracing.span("train.draws"):
+            block_draws = [draws if draws is not None else draw_step(
                 self.generator, self.model_cfg, tc, tc.batch_size,
-                self.state.model.num_layers, self.aug_prob or 0.0, step + i))
+                self.state.model.num_layers, self.aug_prob or 0.0, step + i) for i in range(k)]
         last = step + k - 1
-        with self.step_timer:
-            metrics = [self._step_fn(self.state, b, d) for b, d in zip(batches, block_draws)]
-            self._pending.append(_Pending(step, metrics, self.state.device))
-            drain_all = (self._is_boundary(last) or not self._last_metrics
-                         or tc.metrics_lag == 0)
+        on_gpu = self.state.device.type == "cuda"
+        if on_gpu and self.step_timer.last_event is None:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.step_timer.mark(start)
+        t0 = time.perf_counter()
+        metrics = []
+        for i, (b, d) in enumerate(zip(batches, block_draws)):
+            with tracing.span("train.step", unit=step + i):
+                metrics.append(self._step_fn(self.state, b, d))
+        self._pending.append(_Pending(step, metrics, self.state.device))
+        drain_all = (self._is_boundary(last) or not self._last_metrics
+                     or tc.metrics_lag == 0)
+        with tracing.span("train.drain"):
             self._drain(0 if drain_all else max(1, tc.metrics_lag // k))
+        if not on_gpu:
+            self.step_timer.add(time.perf_counter() - t0)
         out = dict(self._last_metrics)
         out.update(self.step_timer.stats(
             images_per_step=k * tc.batch_size * tc.gradient_accumulate_every))
 
-        if last % tc.save_every == 0:
-            self.save(last // tc.save_every)
+        save = last % tc.save_every == 0
+        if save:
+            with tracing.span("train.save"):
+                self.save(last // tc.save_every)
         evaluate = last % tc.evaluate_every == 0 or (last % 100 == 0 and last < 2500)
         fid = tc.calculate_fid_every is not None and last % tc.calculate_fid_every == 0 and last != 0
         if evaluate and self.is_main:
-            self.evaluate(encoder_input=tc.sample_from_encoder, num=last // tc.evaluate_every)
+            with tracing.span("train.evaluate"):
+                self.evaluate(encoder_input=tc.sample_from_encoder, num=last // tc.evaluate_every)
         if fid and self.is_main:
-            num_batches = math.ceil(tc.calculate_fid_num_images / tc.batch_size)
-            self.last_fid = self.calculate_fid(num_batches)
-            with open(self.results_dir / self.name / "fid_scores.txt", "a") as f:
-                f.write(f"{last},{self.last_fid}\n")
+            with tracing.span("train.fid"):
+                num_batches = math.ceil(tc.calculate_fid_num_images / tc.batch_size)
+                self.last_fid = self.calculate_fid(num_batches)
+                with open(self.results_dir / self.name / "fid_scores.txt", "a") as f:
+                    f.write(f"{last},{self.last_fid}\n")
         if evaluate or fid:
             self._sync_loader()
+        if save or evaluate or fid:
+            self.step_timer.restart()  # the queue is empty: every block is read
         return out
 
     def _sync_loader(self) -> None:
@@ -396,6 +433,8 @@ class Trainer:
                     raise NanException
                 self.logger.log(block.step + i, metrics)
                 self._last_metrics = metrics
+            if block.event is not None:
+                self.step_timer.mark(block.event)
 
     # ----------------------------------------------------------- persistence
     def save(self, num: int) -> str:
@@ -440,6 +479,7 @@ class Trainer:
         writes precede; a full load then broadcasts rank 0's state."""
         self._drain(0, reload_on_nan=False)
         self._ckpt_writer.wait()
+        self.step_timer.restart()
         self.mesh.barrier()
         self.load_config()
         if num == -1:

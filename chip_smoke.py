@@ -124,6 +124,24 @@ Phases, in order; any failure exits non-zero:
    both kernels launched in every rank, styles/s. Two ranks sharing one
    card are no speed figure.
 
+12. The convolution's column kernels (``csrc/im2col.cu``, ``csrc/col2im.cu``,
+   ``ops/conv.py``), float32 with TF32 off, at the main path's shapes at
+   batch 32 (``ffhq256.train``: D's 64-channel 3x3 at 256 px and its fused
+   5x5 stride-2 downsample over the padded 259x259 map, G's 32-channel 3x3
+   at 256 px) and at small, ragged, strided and grouped ones (a depthwise
+   3x3 stride 2 at MobileNetV2's shape, which no cell runs): each kernel
+   against its plain version bit for bit, the columns position-major and
+   col2im from a position-major and a row-major gradient, and
+   ``conv2d_gemm`` against the im2col of PR 2 (pad, unfold, copy,
+   differentiated by autograd) bit for bit in the output, the first
+   derivatives and the gradient penalty's second derivative; kernel ms,
+   device ms, the bytes bound, plain ms (position-major too) and the
+   library's ``F.unfold`` / ``F.fold`` ms (row-major) at the main shapes,
+   which the ``kernels`` line sums; then one
+   ``Trainer.train()`` step at the CLI defaults, float32 (a GP step), which
+   must launch both, while no-grad and bfloat16 convolutions launch
+   neither.
+
 Phase 2 also holds the blur fused with 2x decimation, which no path runs,
 at the D/E shapes of training. The script prints a ``kernels`` JSON line
 and, last, the ``ok`` JSON line. Details go to
@@ -133,6 +151,8 @@ and, last, the ``ok`` JSON line. Details go to
 
 runs phases 1-2 alone; with ``--package-root`` it times the kernels of
 another checkout (an unpacked parent commit) with this script's phase 2.
+``python3 chip_smoke.py --conv-only`` runs phases 1 and 12 alone (details
+in ``chiprun_out/chip_smoke_conv.json``).
 ``python3 chip_smoke.py --parallel-only [--cards N]`` runs phases 1 and
 11 alone; with ``--cards N`` phase 11 also runs on N cards, one rank each
 (NCCL), for a machine with that many.
@@ -2315,6 +2335,205 @@ def _parallel_sweep(card: str, runs: dict, base: Path, sharded: list):
     return out
 
 
+# ------------------------------------------------------------------ phase 12
+
+
+# (name, input, weight, stride, padding, groups): the main path's float32
+# convolutions under autograd at batch 32, then small, ragged and strided ones
+COLUMN_MAIN = [
+    ("D 3x3, 64 ch, 256 px", (32, 64, 256, 256), (64, 64, 3, 3), 1, 1, 1),
+    ("D fused downsample 5x5 stride 2", (32, 64, 259, 259), (64, 64, 5, 5), 2, 0, 1),
+    ("G 3x3, 32 ch, 256 px", (32, 32, 256, 256), (32, 32, 3, 3), 1, 1, 1),
+]
+COLUMN_EXTRA = [
+    ("depthwise 3x3 stride 2", (32, 96, 128, 128), (96, 1, 3, 3), 2, 1, 96),
+    ("1x1 residual stride 2", (32, 256, 64, 64), (512, 256, 1, 1), 2, 0, 1),
+    ("3x3 at 4 px", (32, 512, 4, 4), (512, 512, 3, 3), 1, 1, 1),
+    ("3x3 at 2 px", (16, 512, 2, 2), (512, 512, 3, 3), 1, 1, 1),
+    ("up-conv strip", (32, 128, 3, 128), (128, 128, 3, 3), 1, 1, 1),
+    ("odd 3x3 stride 2", (4, 5, 9, 7), (6, 5, 3, 3), 2, 1, 1),
+    ("5x5 padded", (4, 3, 7, 11), (4, 3, 5, 5), 1, 2, 1),
+    ("wide row, split tiles", (2, 3, 5, 1500), (4, 3, 3, 3), 1, 1, 1),
+]
+
+
+def _conv2d_gemm_autograd(x, weight, bias, stride, padding, groups):
+    """``ops.conv.conv2d_gemm`` as PR 2 wrote it: pad, strided window views
+    and one copy, differentiated by autograd (the yardstick of phase 12)."""
+    import torch.nn.functional as F
+
+    n, c, _, _ = x.shape
+    o, _, kh, kw = weight.shape
+    if padding:
+        x = F.pad(x, (padding,) * 4)
+    win = x.unfold(2, kh, stride).unfold(3, kw, stride)
+    oh, ow = win.shape[2], win.shape[3]
+    cols = win.permute(0, 1, 4, 5, 2, 3)
+    if groups == 1:
+        y = weight.reshape(o, -1) @ cols.reshape(n, c * kh * kw, oh * ow)
+    else:
+        cols = cols.reshape(n, groups, c // groups * kh * kw, oh * ow)
+        y = weight.reshape(groups, o // groups, -1) @ cols
+    y = y.reshape(n, o, oh * ow)
+    if bias is not None:
+        y = y + bias[:, None]
+    return y.reshape(n, o, oh, ow)
+
+
+def _conv_derivatives(fn, x, w, b, stride, pad, groups, gy):
+    """The output, the first derivatives of (y . gy) and the gradient
+    penalty's second derivative d|dx|^2 / dw of ``fn`` (dx = col2im(w^T gy),
+    so its derivative runs im2col as col2im's backward)."""
+    x = x.detach().requires_grad_(True)
+    w = w.detach().requires_grad_(True)
+    b = b.detach().requires_grad_(True)
+    y = fn(x, w, b, stride, pad, groups)
+    dx, dw, db = torch.autograd.grad((y * gy).sum(), (x, w, b), create_graph=True)
+    (ddw,) = torch.autograd.grad(dx.square().sum(), w)
+    return dict(y=y, dx=dx, dw=dw, db=db, ddw=ddw)
+
+
+def columns_phase(card: str, rates):
+    """Phase 12: the column kernels at the main shapes and the odd ones,
+    bit for bit; their times; their launches in one train step."""
+    import torch.nn.functional as F
+
+    from stylex_tpu_torch.config import ModelConfig, TrainConfig
+    from stylex_tpu_torch.device import set_float32_precision
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+    from stylex_tpu_torch.ops import conv as tconv
+
+    set_float32_precision()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows, compared = [], []
+    for group, cases in (("main", COLUMN_MAIN), ("extra", COLUMN_EXTRA)):
+        for name, xs, ws, stride, pad, groups in cases:
+            k, s, p = (ws[2], ws[3]), (stride, stride), (pad, pad)
+            x = torch.randn(xs, generator=gen, device="cuda")
+            w = torch.randn(ws, generator=gen, device="cuda") / float(np.sqrt(np.prod(ws[1:])))
+            b = torch.randn(ws[0], generator=gen, device="cuda")
+            # the kernels against their plain versions, alone: col2im from a
+            # position-major gradient (an ungrouped GEMM's) and a row-major one
+            # (a grouped GEMM's, which the wrapper copies position-major)
+            reset_launches()
+            cols = tconv.im2col(x, k, s, p)
+            want = tconv.im2col_plain(x, k, s, p)
+            g_rows = torch.randn(cols.shape, generator=gen, device="cuda")
+            g = g_rows.mT.contiguous().mT
+            dx = tconv.col2im(g, xs[2:], k, s, p)
+            dx_want = tconv.col2im_plain(g, xs[2:], k, s, p)
+            dx_rows = tconv.col2im(g_rows, xs[2:], k, s, p)
+            torch.cuda.synchronize()
+            alone = dict(im2col=torch.equal(cols, want),
+                         col2im=torch.equal(dx, dx_want) and torch.equal(dx_rows, dx_want),
+                         col2im_max_abs=float(torch.maximum((dx - dx_want).abs().max(),
+                                                            (dx_rows - dx_want).abs().max())),
+                         strides=list(cols.stride()),
+                         launches=dict(im2col=LAUNCHES["im2col"], col2im=LAUNCHES["col2im"]))
+            del want, dx_want, dx_rows, g_rows
+            # the convolution through them against PR 2's, to second order
+            y = tconv.conv2d_gemm(x, w, None, stride, pad, groups)
+            gy = torch.randn(y.shape, generator=gen, device="cuda")
+            del y
+            got = _conv_derivatives(tconv.conv2d_gemm, x, w, b, stride, pad, groups, gy)
+            got = {key: v.detach() for key, v in got.items()}
+            ref = _conv_derivatives(_conv2d_gemm_autograd, x, w, b, stride, pad, groups, gy)
+            ref = {key: v.detach() for key, v in ref.items()}
+            torch.cuda.synchronize()
+            equal = {key: torch.equal(got[key], ref[key]) for key in got}
+            gaps = {key: float((got[key] - ref[key]).abs().max() / ref[key].abs().max().clamp_min(
+                1e-30)) for key in got}
+            row = dict(group=group, name=name, x=list(xs), w=list(ws), stride=stride,
+                       padding=pad, groups=groups, alone=alone, equal=equal, gaps=gaps)
+            del got, ref, gy
+            log(f"  {name} x{xs} w{ws} s{stride} p{pad} g{groups}: im2col == plain "
+                f"{alone['im2col']}, col2im == plain {alone['col2im']} "
+                f"(max {alone['col2im_max_abs']:.3g}); conv against PR 2's, bit for bit: "
+                + ", ".join(f"{key} {v}" for key, v in equal.items()) + f" [{card}]")
+            if group == "main":  # times at the main shapes
+                nbytes = 4 * (x.numel() + cols.numel())
+                bound = nbytes / rates[0] * 1e3
+                size = xs[2:]
+
+                def plain_cols(t):  # the plain version, position-major too
+                    return tconv.im2col_plain(t, k, s, p).mT.contiguous().mT
+
+                with torch.no_grad():
+                    row["im2col_ms"] = dict(
+                        kernel=time_ms(lambda t: tconv.im2col(t, k, s, p), x),
+                        device=device_ms(lambda t: tconv.im2col(t, k, s, p), x),
+                        plain=time_ms(plain_cols, x),
+                        library=time_ms(lambda t: F.unfold(t, k, 1, p, s), x), bound=bound)
+                    row["col2im_ms"] = dict(
+                        kernel=time_ms(lambda t: tconv.col2im(t, size, k, s, p), g),
+                        device=device_ms(lambda t: tconv.col2im(t, size, k, s, p), g),
+                        plain=time_ms(lambda t: tconv.col2im_plain(t, size, k, s, p), g),
+                        library=time_ms(lambda t: F.fold(t, size, k, 1, p, s), g), bound=bound)
+                for op in ("im2col", "col2im"):
+                    t = row[f"{op}_ms"]
+                    t["device_bound_share"] = t["bound"] / t["device"]
+                    log(f"    {op}: kernel "
+                        f"{t['kernel']:.4f} ms, device {t['device']:.4f} ms "
+                        f"({t['device_bound_share']:.3f} of the bytes bound {t['bound']:.4f} ms, "
+                        f"{nbytes / 1e9:.3f} GB), plain {t['plain']:.4f} ms, library "
+                        f"{t['library']:.4f} ms [{card}]")
+            rows.append(row)
+            compared.append(all(equal.values()) and alone["im2col"] and alone["col2im"]
+                            and alone["launches"] == dict(im2col=1, col2im=2))
+            del x, w, b, cols, g, dx
+            torch.cuda.empty_cache()
+
+    # the train step launches both; no-grad and bfloat16 convolutions neither
+    base = Path(tempfile.mkdtemp(prefix="stylex_columns_", dir=OUT_DIR))
+    try:
+        tc = TrainConfig(save_every=1000, evaluate_every=1000, num_image_tiles=4,
+                         compute_dtype="float32")
+        step, trainer = _train_run(card, base, "columns", ModelConfig(), tc, 1)
+        del trainer
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    x = torch.randn(2, 8, 16, 16, device="cuda")
+    w = torch.randn(8, 8, 3, 3, device="cuda", requires_grad=True)
+    reset_launches()
+    with torch.no_grad():
+        tconv.conv2d(x, w, None, 1, 1)
+    tconv.conv2d(x.bfloat16(), w.bfloat16(), None, 1, 1).float().sum().backward()
+    torch.cuda.synchronize()
+    bypass = dict(LAUNCHES)
+    out = dict(rows=rows, train_step_launches=step["launches"], bypass_launches=bypass,
+               train_step_ms=step["ms_per_step"])
+    log(f"  one train step (CLI defaults, float32, GP): launches {step['launches']}; "
+        f"no-grad and bfloat16 convolutions: im2col {bypass['im2col']}, col2im "
+        f"{bypass['col2im']} [{card}]")
+    if not all(compared):
+        bad = [r["name"] for r, ok in zip(rows, compared) if not ok]
+        raise AssertionError(f"column kernels differ from the plain path at {bad}")
+    if step["launches"]["im2col"] <= 0 or step["launches"]["col2im"] <= 0:
+        raise AssertionError(f"the train step did not launch both column kernels: "
+                             f"{step['launches']}")
+    if bypass["im2col"] or bypass["col2im"]:
+        raise AssertionError(f"a no-grad or bfloat16 convolution launched a kernel: {bypass}")
+    return out
+
+
+def columns_summary(columns_out) -> dict:
+    """The ``kernels`` line's timings of the column kernels: phase 12's
+    float32 times summed over its main shapes (one call each), the largest
+    gap to the plain version over every shape; no host cost measured."""
+    rows = columns_out["rows"]
+    main = [r for r in rows if r["group"] == "main"]
+    out = {}
+    for op in ("im2col", "col2im"):
+        # im2col copies values (equal or not); col2im's largest gap
+        err = (max(r["alone"]["col2im_max_abs"] for r in rows) if op == "col2im"
+               else 0.0 if all(r["alone"]["im2col"] for r in rows) else float("nan"))
+        out[op] = dict(max_abs_err=err, bound_by={"bytes"}, host_us=None, host_us_grad=None,
+                       **{key: sum(r[f"{op}_ms"][part] for r in main) for key, part in (
+                           ("ms", "kernel"), ("device_ms", "device"), ("plain_ms", "plain"),
+                           ("bound_ms", "bound"), ("library_ms", "library"))})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--kernels-only", action="store_true",
@@ -2324,6 +2543,8 @@ def main(argv=None) -> int:
                     help="import stylex_tpu_torch from this checkout (to time another commit's "
                          "kernels with this script's phase 2)")
     ap.add_argument("--tag", default="", help="suffix of the --kernels-only output file")
+    ap.add_argument("--conv-only", action="store_true",
+                    help="phases 1 and 12 only; details to chip_smoke_conv.json")
     ap.add_argument("--parallel-only", action="store_true",
                     help="phases 1 and 11 only; details to chip_smoke_parallel.json")
     ap.add_argument("--cards", type=int, default=1,
@@ -2346,6 +2567,14 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     paths = csrc.build(verbose=True)
     log(f"  built {sorted(paths)} in {time.perf_counter() - t:.2f} s")
+
+    if args.conv_only:
+        log("[phase 12] the convolution's column kernels")
+        conv_out = columns_phase(card, rates)
+        (OUT_DIR / "chip_smoke_conv.json").write_text(json.dumps(
+            dict(card=card, kind=kind, columns=conv_out), indent=1, default=str))
+        log(card)
+        return 0
 
     if args.parallel_only:
         log("[phase 11] data parallelism on the one card")
@@ -2411,12 +2640,23 @@ def main(argv=None) -> int:
     parallel_out["seconds"] = time.perf_counter() - t11
     log(f"  phase 11 took {parallel_out['seconds']:.1f} s [{card}]")
 
+    log("[phase 12] the convolution's column kernels: bit for bit at the main shapes, times, "
+        "their launches in a train step")
+    t12 = time.perf_counter()
+    columns_out = columns_phase(card, rates)
+    columns_out["seconds"] = time.perf_counter() - t12
+    log(f"  phase 12 took {columns_out['seconds']:.1f} s [{card}]")
+
     sources = {"upsample2x_bilinear": "stylex_tpu_torch/csrc/upsample2x_bilinear.cu",
                "blur3": "stylex_tpu_torch/csrc/blur3.cu",
-               "blur3_downsample2x": "stylex_tpu_torch/csrc/blur3.cu"}
+               "blur3_downsample2x": "stylex_tpu_torch/csrc/blur3.cu",
+               "im2col": "stylex_tpu_torch/csrc/im2col.cu",
+               "col2im": "stylex_tpu_torch/csrc/col2im.cu"}
     replaces = {"upsample2x_bilinear": "stylex_tpu/ops/pallas_upsample.py:159",
                 "blur3": "stylex_tpu/ops/pallas_blur.py:122",
-                "blur3_downsample2x": "stylex_tpu/ops/pallas_blur.py:128"}
+                "blur3_downsample2x": "stylex_tpu/ops/pallas_blur.py:128",
+                "im2col": "none", "col2im": "none"}
+    timings = {**summary, **columns_summary(columns_out)}
     kernels = [
         dict(name=name, route="cuda", source=sources[name], replaces=replaces[name],
              launches=main_out["resume"]["launches"][name],
@@ -2446,7 +2686,7 @@ def main(argv=None) -> int:
              plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
              bound_by="+".join(sorted(s["bound_by"])), library_ms=s["library_ms"],
              host_us=s["host_us"], host_us_grad=s["host_us_grad"])
-        for name, s in summary.items()
+        for name, s in timings.items()
     ]
     detail = dict(
         card=card, kind=kind, torch=torch.__version__, cuda=torch.version.cuda,
@@ -2456,7 +2696,7 @@ def main(argv=None) -> int:
         main_path_checks=checks, ranked=ranked,
         card_vs_cpu=cpu_errs, training=train_out, conv_precision=conv_rows,
         train_card_vs_cpu=train_cpu_errs, options=options_out, evaluation=eval_out,
-        weights=weights_out, google=google_out, parallel=parallel_out,
+        weights=weights_out, google=google_out, parallel=parallel_out, columns=columns_out,
         seconds=time.perf_counter() - t_start,
     )
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
@@ -2477,7 +2717,8 @@ def main(argv=None) -> int:
         f"launches_parallel_train and launches_parallel_sweep from phase 11's two ranks "
         f"(summed over both) of (a) 5 train steps and (b) run_attfind; "
         f"gen256 (float32) and gen256_bf16 sum phase 2's times over one literal-graph forward's "
-        f"upsample calls at 256 px")
+        f"upsample calls at 256 px; for im2col and col2im the times are float32 sums over phase "
+        f"12's main shapes, one call each, and host_us was not measured")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,13 +9,19 @@ unchanged one is loaded as built. Missing libraries are built in parallel,
 one ``nvcc`` per source, all started together. Nothing is compiled or
 loaded when this module is imported.
 
-Every C entry point has the signature
-``int fn(const void* x, void* y, int planes, int h, int w, int vec,
-int blocks, int device, void* stream)``, where ``h`` and ``w`` are the
-input's size, ``vec`` the columns of a thread's segment and ``blocks`` the
-grid of 256-thread blocks (both from ``ops.blur.launch_geometry``), and
-returns ``cudaGetLastError()`` after its launch. Kernel names that share a
-source share its one library.
+Each C entry point returns ``cudaGetLastError()`` after its launch, and
+takes the argument types ``ARGTYPES`` gives its kernel. The resampling
+kernels' (``upsample2x_bilinear``, ``blur3``, ``blur3_downsample2x``) are
+``int fn(const void* x, void* y, int planes, int h, int w, int vec, int
+blocks, int device, void* stream)``, where ``h`` and ``w`` are the input's
+size, ``vec`` the columns of a thread's segment and ``blocks`` the grid of
+256-thread blocks (both from ``ops.blur.launch_geometry``). The
+convolution's column kernels (``im2col``, ``col2im``) are ``int fn(const
+void* src, void* dst, const ColumnsArgs* args, int device, void*
+stream)``, the geometry in :class:`ColumnsArgs` (``columns.cuh``'s struct,
+filled by ``ops.conv``); their shared tiles are ``TILE_FLOATS`` and
+``GATHER_FLOATS`` floats, given to ``nvcc`` as defines. Kernel names that
+share a source share its one library.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["KERNELS", "build", "load", "library_path"]
+__all__ = ["ARGTYPES", "DEFINES", "GATHER_FLOATS", "KERNELS", "TILE_FLOATS", "ColumnsArgs",
+           "build", "load", "library_path"]
 
 _HERE = Path(__file__).resolve().parent
 DEFAULT_BUILD_DIR = _HERE.parents[1] / "build" / "stylex_tpu_torch"
@@ -42,17 +49,46 @@ KERNELS: Dict[str, tuple] = {
                             ("upsample2x_bilinear_f32", "upsample2x_bilinear_bf16")),
     "blur3": ("blur3.cu", ("blur3_f32", "blur3_bf16")),
     "blur3_downsample2x": ("blur3.cu", ("blur3_downsample2x_f32", "blur3_downsample2x_bf16")),
+    "im2col": ("im2col.cu", ("im2col_f32",)),
+    "col2im": ("col2im.cu", ("col2im_f32",)),
 }
+
+# the column kernels' shared tiles, in floats: im2col's input tile and
+# col2im's tile of position-major columns (ops.conv sizes the tiles to them)
+TILE_FLOATS = 4096
+GATHER_FLOATS = 12288
+DEFINES = (f"-DTILE_FLOATS={TILE_FLOATS}", f"-DGATHER_FLOATS={GATHER_FLOATS}")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", *DEFINES,
 )
 
-_ARGTYPES = [
+
+class ColumnsArgs(ctypes.Structure):
+    """``columns.cuh``'s ``ColumnsArgs``, field for field: the image (n, c,
+    h, w) as ``planes`` = n * c, its strides ``xs_*`` and the columns'
+    ``gs_*`` in elements, the window (``kh``, ``kw``), stride, padding and
+    output size, a block's tile (``pb`` channels, ``ti`` rows, ``tj``
+    columns), im2col's stores of ``vec`` and col2im's unrolled windows per
+    axis (``vec``)."""
+
+    _fields_ = [(name, ctypes.c_int64) for name in (
+        "planes", "c", "h", "w", "xs_n", "xs_c", "xs_h", "xs_w", "gs_n", "gs_k", "gs_l",
+        "kh", "kw", "sh", "sw", "ph", "pw", "oh", "ow", "pb", "ti", "tj", "vec", "blocks")]
+
+
+_PLANES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
+_COLUMNS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ColumnsArgs), ctypes.c_int,
+            ctypes.c_void_p]
+
+# kernel name -> the argument types of its C functions
+ARGTYPES: Dict[str, list] = {"upsample2x_bilinear": _PLANES, "blur3": _PLANES,
+                             "blur3_downsample2x": _PLANES, "im2col": _COLUMNS,
+                             "col2im": _COLUMNS}
 
 _loaded: Dict[str, ctypes.CDLL] = {}  # kernel name -> its source's library
 _libraries: Dict[Path, ctypes.CDLL] = {}
@@ -124,6 +160,6 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libraries.get(path) or ctypes.CDLL(str(path))
         _libraries[path] = _loaded[name] = lib
         for fn in KERNELS[name][1]:
-            getattr(lib, fn).argtypes = _ARGTYPES
+            getattr(lib, fn).argtypes = ARGTYPES[name]
             getattr(lib, fn).restype = ctypes.c_int
     return lib

@@ -3,16 +3,22 @@
 There is no ``nvcc`` and no GPU on a CPU test host, so ``csrc/*.cu`` are
 compiled here by the host's C++ compiler against a small header that stands
 in for the few CUDA names the kernels use: the grid is walked by two loops,
-``__ldg`` is a load that counts misaligned accesses, the round-to-nearest
-float intrinsics are float operations with contraction off, and bfloat16 is
-its bit pattern with round-to-nearest-even. Each kernel is launched through
-its C entry point with the wrapper's own launch geometry
-(``ops.blur.launch_geometry``) and held bit for bit against its plain
-PyTorch version, float32 and bfloat16, at small, ragged and odd shapes and
-on an input one element into its storage. It shows the sources' indexing,
-edge handling and order of operations, not that ``nvcc`` accepts them or
-how fast they run: that is ``chip_smoke.py``'s work on the card. Skips
-where no C++ compiler is found.
+or, for a kernel that synchronises its block, each block's threads run as
+coroutines that switch at every ``__syncthreads`` (shared memory is a static
+array, an asynchronous copy to it a copy at once); ``__ldg`` is a load that
+counts misaligned accesses, the round-to-nearest float intrinsics are float
+operations with contraction off, and bfloat16 is its bit pattern with
+round-to-nearest-even. Each resampling kernel is launched through its C entry
+point with the wrapper's own launch geometry (``ops.blur.launch_geometry``)
+and held bit for bit against its plain PyTorch version, float32 and
+bfloat16, at small, ragged and odd shapes and on an input one element into
+its storage; the convolution's column kernels with the arguments
+``ops.conv`` builds (``im2col_launch``, ``col2im_launch``), float32,
+against ``im2col_plain`` and ``col2im_plain`` at the step's kinds of window,
+with the wrapper's tiles and with the smallest ones (one channel a block,
+tiles ragged at the edges), and strided inputs. It shows the sources'
+indexing, edge handling and order of operations, not that ``nvcc`` accepts
+them or how fast they run: that is ``chip_smoke.py``'s work on the card. Skips where no C++ compiler is found.
 """
 
 import ctypes
@@ -27,6 +33,7 @@ import torch
 
 from stylex_tpu_torch import csrc
 from stylex_tpu_torch.ops import blur as tblur
+from stylex_tpu_torch.ops import conv as tconv
 
 CSRC = Path(csrc.__file__).resolve().parent
 
@@ -39,6 +46,12 @@ STUB = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__ __restrict
+#define __shared__ static
+#include <algorithm>
+#include <functional>
+#include <vector>
+#include <ucontext.h>
+using std::min;
 struct uint2 { unsigned x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 typedef int cudaError_t;
@@ -57,6 +70,15 @@ template <class T> T __ldg(const T* p) {
   std::memcpy(&v, p, sizeof(T));
   return v;
 }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
+// cp.async: the copy done at once, the commit and the wait nothing
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 struct __nv_bfloat16 { unsigned short x; };
@@ -75,18 +97,64 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);
   return {(unsigned short)(u >> 16)};
 }
+// a block's threads as coroutines: each round runs every thread on to its
+// next __syncthreads (or its end), so no thread passes a barrier before all
+// have reached it
+struct Fiber { ucontext_t ctx; std::vector<char> stack; bool done; };
+static ucontext_t fiber_main;
+static std::vector<Fiber>* fibers;
+static unsigned fiber_now;
+static std::function<void()>* fiber_body;
+static void fiber_entry() {
+  (*fiber_body)();
+  (*fibers)[fiber_now].done = true;
+  swapcontext(&(*fibers)[fiber_now].ctx, &fiber_main);
+}
+inline void __syncthreads() { swapcontext(&(*fibers)[fiber_now].ctx, &fiber_main); }
+template <class F> void run_grid(unsigned grid, unsigned threads, F body) {
+  std::function<void()> fn(body);
+  std::vector<Fiber> fs(threads);
+  fibers = &fs;
+  fiber_body = &fn;
+  blockDim.x = threads;
+  for (auto& f : fs) f.stack.resize(1 << 16);
+  for (blockIdx.x = 0; blockIdx.x < grid; ++blockIdx.x) {
+    for (auto& f : fs) {
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = f.stack.data();
+      f.ctx.uc_stack.ss_size = f.stack.size();
+      f.ctx.uc_link = nullptr;
+      makecontext(&f.ctx, fiber_entry, 0);
+      f.done = false;
+    }
+    for (bool left = true; left;) {
+      left = false;
+      for (unsigned t = 0; t < threads; ++t) {
+        if (fs[t].done) continue;
+        fiber_now = t;
+        threadIdx.x = t;
+        swapcontext(&fiber_main, &fs[t].ctx);
+        left = left || !fs[t].done;
+      }
+    }
+  }
+}
 """
 
-# kernel<...><<<grid, threads, ...>>>(args) -> the grid walked by two loops
-LAUNCH = re.compile(r"(\w+<[^;<>]*>)<<<([^,]+),\s*([^,]+),[^>]*>>>")
+# kernel<...><<<grid, threads, ...>>>(args); -> the grid walked by two loops, or
+# by run_grid's coroutines where the source synchronises its blocks
+LAUNCH = re.compile(r"(\w+(?:<[^;<>]*>)?)<<<([^,]+),\s*([^,]+),[^>]*>>>(\([^;]*\));")
 CUDA_INCLUDES = "#include <cuda_runtime.h>\n#include <cuda_bf16.h>\n"
 
 
 def _host_source(text: str) -> str:
     text = text.replace(CUDA_INCLUDES, '#include "cuda_stub.h"\n')
+    text = text.replace("#include <cuda_pipeline.h>\n", "")
+    if "__syncthreads" in text:
+        return LAUNCH.sub(r"run_grid((unsigned)(\2), (unsigned)(\3), [&]() { \1\4; });", text)
     return LAUNCH.sub(r"blockDim.x = (\3); for (blockIdx.x = 0; blockIdx.x < (unsigned)(\2); "
                       r"++blockIdx.x) for (threadIdx.x = 0; threadIdx.x < blockDim.x; "
-                      r"++threadIdx.x) \1", text)
+                      r"++threadIdx.x) \1\4;", text)
 
 
 @pytest.fixture(scope="module")
@@ -108,10 +176,11 @@ def libraries(tmp_path_factory):
         lib = src.with_suffix(".so")
         if not lib.exists():
             subprocess.run([cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-                            "-o", str(lib), str(src)], check=True, capture_output=True, text=True)
+                            *csrc.DEFINES, "-o", str(lib), str(src)], check=True,
+                           capture_output=True, text=True)
         libs[name] = ctypes.CDLL(str(lib))
         for fn in functions:
-            getattr(libs[name], fn).argtypes = csrc._ARGTYPES
+            getattr(libs[name], fn).argtypes = csrc.ARGTYPES[name]
             getattr(libs[name], fn).restype = ctypes.c_int
     return libs
 
@@ -161,3 +230,75 @@ def test_kernel_source_matches_plain_version(libraries, name, shape):
             assert lib.misaligned_loads() == before, "a vector load was not aligned to its size"
             want = plain(x)
             assert torch.equal(got, want), (dtype, offset, (got.float() - want.float()).abs().max())
+
+
+# (image shape, kernel, stride, padding, view): the step's kinds of window
+# (3x3 stride 1 and 2, the fused downsample's 5x5 stride 2 unpadded, 1x1
+# stride 2 and 1), odd and tiny planes, a wide plane, many channels, inputs
+# seen through a slice, a transpose and a broadcast, and 7x7 windows (col2im
+# unrolled over 4 windows an axis at stride 2, looped at stride 1)
+COLUMN_CASES = [
+    ((2, 3, 8, 10), 3, 1, 1, None), ((2, 3, 9, 7), 3, 2, 1, None), ((1, 2, 13, 13), 5, 2, 0, None),
+    ((2, 4, 8, 8), 1, 2, 0, None), ((2, 3, 5, 6), 1, 1, 0, "slice"), ((1, 2, 7, 5), 5, 1, 2, None),
+    ((2, 3, 2, 2), 3, 1, 1, None), ((1, 1, 3, 1400), 3, 1, 1, None),
+    ((2, 2048, 4, 4), 3, 1, 1, None),
+    ((2, 3, 9, 12), 3, 1, 1, "slice"), ((2, 3, 8, 8), 3, 2, 1, "transpose"),
+    ((2, 3, 6, 6), 3, 1, 1, "broadcast"), ((1, 2, 6, 9), (3, 1), (2, 1), (1, 0), None),
+    ((1, 2, 9, 10), 7, 2, 3, None), ((1, 2, 9, 10), 7, 1, 3, None),
+]
+
+
+def _column_input(shape, view, seed):
+    rng = np.random.RandomState(seed)
+    if view == "slice":  # every other row and a column cut off: strides (.., 2w+2, 1)
+        n, c, h, w = shape
+        big = torch.from_numpy(rng.randn(n, c, 2 * h, w + 2).astype(np.float32))
+        return big[:, :, ::2, 1:w + 1]
+    if view == "transpose":
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).transpose(2, 3)
+    if view == "broadcast":
+        return torch.from_numpy(rng.randn(shape[0], 1, *shape[2:]).astype(np.float32)).expand(shape)
+    return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("small_tiles", [False, True])
+@pytest.mark.parametrize("shape,k,s,p,view", COLUMN_CASES)
+def test_column_kernel_sources_match_plain_versions(libraries, shape, k, s, p, view,
+                                                    small_tiles):
+    """im2col from the image and col2im from a gradient of the columns, each
+    through the C entry point with the wrapper's arguments (or the smallest
+    tiles), bit for bit against the plain versions; col2im from a
+    position-major gradient, a row-major one folded as the wrapper folds it,
+    and a -0.0 gradient, whose sign unfold_backward keeps only where it
+    copies."""
+    k, s, p = tconv._pair(k), tconv._pair(s), tconv._pair(p)
+    x = _column_input(shape, view, seed=sum(shape))
+    n, c, h, w = x.shape
+    cols, args = tconv.im2col_launch(x, k, s, p)
+    if small_tiles:
+        args.pb, args.ti, args.tj, args.vec = 1, min(args.ti, 3), min(args.tj, 5), 1
+        args.blocks = n * c * -(-args.oh // args.ti) * -(-args.ow // args.tj)
+    cols.fill_(float("nan"))
+    before = libraries["im2col"].misaligned_loads()
+    assert libraries["im2col"].im2col_f32(x.data_ptr(), cols.data_ptr(), ctypes.byref(args),
+                                          0, None) == 0
+    assert libraries["im2col"].misaligned_loads() == before
+    want = tconv.im2col_plain(x, k, s, p)
+    assert cols.shape == want.shape
+    assert cols.stride()[1:] == (1, cols.shape[1])  # position-major
+    assert torch.equal(cols, want), (cols - want).abs().max()
+
+    rng = np.random.RandomState(sum(shape) + 1)
+    g = torch.from_numpy(rng.randn(*want.shape).astype(np.float32))
+    for grad in (g.mT.contiguous().mT, g, torch.full_like(g, -0.0)):
+        grad = tconv._position_major(grad)
+        dx, args = tconv.col2im_launch(grad, (h, w), k, s, p)
+        if small_tiles:
+            args.pb, args.ti, args.tj = 1, min(args.ti, 3), min(args.tj, 5)
+            args.blocks = n * c * -(-h // args.ti) * -(-w // args.tj)
+        dx.fill_(float("nan"))
+        assert libraries["col2im"].col2im_f32(grad.data_ptr(), dx.data_ptr(), ctypes.byref(args),
+                                              0, None) == 0
+        want = tconv.col2im_plain(grad, (h, w), k, s, p)
+        assert torch.equal(dx, want), (dx - want).abs().max()
+        assert torch.equal(torch.signbit(dx), torch.signbit(want))

@@ -108,7 +108,14 @@ Phases, in order; any failure exits non-zero:
    styles/s; (e) the C++ pixel pipeline built and taken by
    ``load_and_transform``, equal to PIL within 2.5/255, and ``measure_op``
    on the upsample at the sweep-chunk shapes within 2x of phase 2's device
-   ms, under the roofline guard.
+   ms, under the roofline guard; (f) one block-resume AttFind sweep at the
+   parameters of each 256-px sweep cell (``coord_batch`` 512, MobileNetV2
+   at 256 px): Google's generator over 1 dlatent and the ``ffhq256``
+   StylEx over 4 images, each kernel call's shape recorded, Google's
+   upsample calls against the count derived from the code; then the
+   upsample at every distinct shape the two sweeps gave it, up to outputs
+   of 4.3e9 elements, against its plain version bit for bit, with its ms
+   and share of the bytes bound.
 
 11. Data parallelism on the one card, float32 with TF32 off: (a) the
    CLI-default trainer (ResNet-18, batch 4 x 8) as one process, as a
@@ -152,7 +159,8 @@ and, last, the ``ok`` JSON line. Details go to
 runs phases 1-2 alone; with ``--package-root`` it times the kernels of
 another checkout (an unpacked parent commit) with this script's phase 2.
 ``python3 chip_smoke.py --conv-only`` runs phases 1 and 12 alone (details
-in ``chiprun_out/chip_smoke_conv.json``).
+in ``chiprun_out/chip_smoke_conv.json``); ``--google-only`` phases 1, 2
+and 10 (details in ``chiprun_out/chip_smoke_google.json``).
 ``python3 chip_smoke.py --parallel-only [--cards N]`` runs phases 1 and
 11 alone; with ``--cards N`` phase 11 also runs on N cards, one rank each
 (NCCL), for a machine with that many.
@@ -182,6 +190,7 @@ F32_TOL = 1e-6  # kernel and plain version do the same float ops: expect 0
 CPU_RTOL, CPU_ATOL = 1e-3, 1e-4  # cuDNN and the CPU sum convolutions in other orders
 TRAIN_BATCH = 32  # images per train step at the CLI defaults: 4 x 8 micro-batches
 GOOGLE_BATCH = 8  # Google's 256-px generator in phase 10
+SWEEP_COORD_BATCH = 512  # the 256-px sweep cells' chunk, in phase 10 (f)
 # the kernels that AttFind and training run; blur3_downsample2x is on no path
 ON_PATH = ("upsample2x_bilinear", "blur3")
 
@@ -555,7 +564,7 @@ def card_vs_cpu_phase():
 
 
 def _card_vs_cpu():
-    from stylex_tpu_torch.attfind.extraction import _phase1, _sweep_chunk
+    from stylex_tpu_torch.attfind.extraction import _sweep_chunk
     from stylex_tpu_torch.config import ModelConfig
     from stylex_tpu_torch.data import SyntheticImageDataset
     from stylex_tpu_torch.device import set_float32_precision
@@ -573,7 +582,7 @@ def _card_vs_cpu():
         clf = build_classifier("mobilenet", cfg.image_size, seed=1, device=dev)
         with torch.no_grad():
             x, nz = images.to(dev), noise.to(dev)
-            w, coords, d, base, _ = _phase1(model, clf.classify_images, x, nz, False)
+            w, coords, d, base, _, _ = model.sweep_phase1(x, clf.classify_images, nz, False)
             n = 32
             img_idx = torch.arange(n, device=dev) % 2
             coord_idx = torch.arange(n, device=dev) * 77 % model.total_style_coords
@@ -1639,6 +1648,36 @@ def google_upsample_launches(spec, fused: bool) -> int:
     return sum(1 + (4 if fused and res // 2 >= 3 else 1) for res in spec.resolutions[1:])
 
 
+def google_sweep_upsample_calls(spec, n: int, coord_batch: int) -> int:
+    """Upsample calls of one block-resume sweep of Google's generator over
+    ``n`` dlatents, from the code (the sweep runs the literal graph): phase
+    1's forward, an entry and an RGB-skip upsample per resolution above 4
+    px; then per chunk resumed at resolution k, the same two for every
+    resolution from max(k, 1) on."""
+    r = len(spec.resolutions)
+    return 2 * (r - 1) + sum(-(-2 * n * size // coord_batch) * 2 * (r - max(k, 1))
+                             for k, size in enumerate(spec.block_sizes))
+
+
+@contextlib.contextmanager
+def _recorded_calls(calls: list):
+    """Append (kernel, input shape, dtype) of every resampling kernel call
+    inside to ``calls``."""
+    from stylex_tpu_torch.ops import blur
+
+    launch = blur._launch
+
+    def recording(name, x, out_shape):
+        calls.append((name, tuple(x.shape), x.dtype))
+        return launch(name, x, out_shape)
+
+    blur._launch = recording
+    try:
+        yield
+    finally:
+        blur._launch = launch
+
+
 @contextlib.contextmanager
 def _resample_graph(fused: bool):
     """Force the fused or the literal resample graph for the calls inside."""
@@ -1656,10 +1695,11 @@ def _resample_graph(fused: bool):
             os.environ[_ENV] = saved
 
 
-def google_phase(card: str, summary):
+def google_phase(card: str, summary, rates):
     """Phase 10: Google's generator at 256 px, its counterfactual FID, the
-    trainer's dispatch knobs, the chunked sweep and the host utilities
-    (``summary``: phase 2's, for (e))."""
+    trainer's dispatch knobs, the chunked sweep, the host utilities
+    (``summary``: phase 2's, for (e)) and the upsample at the 256-px
+    sweeps' chunk shapes (``rates``: the card's, for (f))."""
     from stylex_tpu_torch.device import set_float32_precision
 
     set_float32_precision()
@@ -1674,7 +1714,8 @@ def google_phase(card: str, summary):
         torch.cuda.empty_cache()
         for key, fn in (("dispatch", lambda: _dispatch_knobs(card, base)),
                         ("chunked_sweep", lambda: _chunked_sweep(card, base)),
-                        ("host_utilities", lambda: _host_utilities(card, summary))):
+                        ("host_utilities", lambda: _host_utilities(card, summary)),
+                        ("sweeps", lambda: _sweep_upsample(card, rates))):
             t, out[key] = _sync_s(fn)
             out[key]["seconds"] = t
         log("  phase 10 seconds: " + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in out.items())
@@ -1836,6 +1877,114 @@ def _google_fid_topk(card: str, gen, base: Path):
     if launches["upsample2x_bilinear"] <= 0:
         raise AssertionError("google_fid_topk did not launch the upsample kernel")
     return dict(fids=fids, launches=launches, **split)
+
+
+def _sweep_upsample(card: str, rates):
+    """(f) The upsample at the chunk shapes of the two 256-px sweep cells.
+    One float32 block-resume sweep each (TF32 off) at the cells' parameters
+    (``coord_batch`` 512, 8 chunks a copy, MobileNetV2 at 256 px, seeded
+    weights): Google's generator over 1 dlatent (``google256.latent_attfind``)
+    and the ``ffhq256`` StylEx over 4 images (``ffhq256.attfind``), with each
+    kernel call's input shape recorded and the launches counted from 0:
+    Google's upsample calls against :func:`google_sweep_upsample_calls`,
+    each one launch, and no blur. Then at every distinct upsample input
+    shape met: the kernel against its plain version bit for bit (the plain
+    version in batch slices: its temporaries at the largest shapes would
+    not fit beside the kernel's output), its device ms by CUDA events and
+    its share of the bytes bound. The largest outputs pass 2^31 elements."""
+    from stylex_tpu_torch.attfind.extraction import attfind_extraction
+    from stylex_tpu_torch.config import Arch, ModelConfig
+    from stylex_tpu_torch.data import SyntheticImageDataset
+    from stylex_tpu_torch.models import build_classifier, build_stylex
+    from stylex_tpu_torch.models.google_stylex import GoogleStylExGenerator
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+    from stylex_tpu_torch.ops.blur import launch_geometry, upsample2x_bilinear, \
+        upsample2x_bilinear_plain
+    from stylex_tpu_torch.ops.latents import image_noise
+
+    def google():
+        gen = GoogleStylExGenerator(seed=0)
+        dl = np.random.RandomState(3).randn(1, gen.spec.dlatent_dim).astype(np.float32)
+        return gen, dl, None, gen.spec.image_size
+
+    def ffhq():
+        c = json.loads((ROOT / "benchmark/configs/ffhq256.json").read_text())["model"]
+        names = {f.name for f in dataclasses.fields(ModelConfig)}
+        cfg = ModelConfig(**{k: v for k, v in c.items() if k in names and k != "arch"},
+                          arch=Arch(c["arch"]))
+        ds = SyntheticImageDataset(4, cfg.image_size, seed=1)
+        images = np.stack([ds[i] for i in range(4)])
+        noise = image_noise(torch.Generator().manual_seed(7), 1, cfg.image_size).numpy()
+        return build_stylex(cfg, seed=0, device="cuda"), images, noise, cfg.image_size
+
+    out, shapes = {}, set()
+    for cell, build in (("google256.latent_attfind", google), ("ffhq256.attfind", ffhq)):
+        model, inputs, noise, size = build()
+        clf = build_classifier("mobilenet", size, seed=0, device="cuda")
+        calls = []
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with _recorded_calls(calls):
+            t, rec = _sync_s(lambda: attfind_extraction(
+                model, clf.classify_images, inputs, noise, coord_batch=SWEEP_COORD_BATCH,
+                chunks_per_dispatch=8, compute_dtype=torch.float32, progress=False))
+        launches = dict(LAUNCHES)
+        styles = rec.style_change.shape[0] * 2 * rec.style_change.shape[2]
+        up = [s for name, s, dtype in calls if name == "upsample2x_bilinear"]
+        geometry = sum(len(launch_geometry("upsample2x_bilinear", s[0] * s[1], s[2], s[3], 4,
+                                           0, 0)[3]) for s in up)
+        res = dict(seconds=t, styles=styles, launches=launches, upsample_calls=len(up),
+                   upsample_shapes=sorted(set(up)), peak_bytes=torch.cuda.max_memory_allocated(),
+                   finite=bool(np.isfinite(rec.style_change).all()))
+        log(f"  (f) {cell}: one sweep of {styles} styles in {t:.2f} s (first call), "
+            f"launches {launches}, {len(up)} upsample calls at {len(set(up))} shapes, "
+            f"peak {res['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+        if not res["finite"] or launches["upsample2x_bilinear"] != geometry or \
+                any(dtype != torch.float32 for _, _, dtype in calls):
+            raise AssertionError(f"{cell}: records finite {res['finite']}, upsample launches "
+                                 f"{launches['upsample2x_bilinear']} against {geometry} from "
+                                 f"the calls' geometry, dtypes {set(d for _, _, d in calls)}")
+        if isinstance(model, GoogleStylExGenerator):
+            want = google_sweep_upsample_calls(model.spec, len(inputs), SWEEP_COORD_BATCH)
+            res["upsample_calls_from_code"] = want
+            log(f"  (f) {cell}: upsample calls {len(up)}, from the code {want}; blur "
+                f"{launches['blur3']} [{card}]")
+            if len(up) != want or launches["blur3"] != 0:
+                raise AssertionError(f"Google sweep: {len(up)} upsample calls against {want} "
+                                     f"from the code, {launches['blur3']} blurs")
+        out[cell] = res
+        shapes.update(up)
+        del model, clf, rec
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for shape in sorted(shapes, key=lambda s: -int(np.prod(s))):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        y = upsample2x_bilinear(x)
+        step = max(1, 2 ** 28 // (4 * int(np.prod(shape[1:]))))  # 1 GiB of plain output a slice
+        err, equal = 0.0, True
+        for i in range(0, shape[0], step):
+            want = upsample2x_bilinear_plain(x[i:i + step])
+            if not torch.equal(y[i:i + step], want):
+                equal = False
+                err = max(err, float((y[i:i + step] - want).abs().max()))
+            del want
+        del y
+        ms = time_ms(upsample2x_bilinear, x, reps=3, loops=3)
+        bound = 5 * x.numel() * 4 / rates[0] * 1e3
+        rows.append(dict(shape=list(shape), out_elements=4 * x.numel(), equal=equal,
+                         max_abs_err=err, ms=ms, bound_ms=bound, bound_share=bound / ms))
+        log(f"  (f) upsample float32 {str(shape):22s} out {4 * x.numel():>13,d} elements: "
+            f"bit for bit {equal} (max abs err {err:.3g}), {ms:.4f} ms, {bound / ms:.3f} of "
+            f"the bytes bound [{card}]")
+        del x
+        torch.cuda.empty_cache()
+    out["rows"] = rows
+    bad = [r["shape"] for r in rows if not r["equal"]]
+    if bad:
+        raise AssertionError(f"upsample kernel differs from its plain version at {bad}")
+    return out
 
 
 def _checkpoint_tensors(payload, clone: bool = False):
@@ -2545,6 +2694,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="", help="suffix of the --kernels-only output file")
     ap.add_argument("--conv-only", action="store_true",
                     help="phases 1 and 12 only; details to chip_smoke_conv.json")
+    ap.add_argument("--google-only", action="store_true",
+                    help="phases 1, 2 and 10 only; details to chip_smoke_google.json")
     ap.add_argument("--parallel-only", action="store_true",
                     help="phases 1 and 11 only; details to chip_smoke_parallel.json")
     ap.add_argument("--cards", type=int, default=1,
@@ -2596,6 +2747,14 @@ def main(argv=None) -> int:
         log(card)
         print(json.dumps({"summary": summary}), flush=True)
         return 0
+    if args.google_only:
+        log("[phase 10] Google's generator at 256 px, its counterfactual FID, the dispatch "
+            "knobs, the chunked sweep, the host utilities, the 256-px sweeps' upsample")
+        google_out = google_phase(card, summary, rates)
+        (OUT_DIR / "chip_smoke_google.json").write_text(json.dumps(
+            dict(card=card, kind=kind, google=google_out), indent=1, default=str))
+        log(card)
+        return 0
 
     log("[phase 3] main path: AttFind extraction, 64px, bf16, full width")
     main_out, checks, ranked, f32_run = main_path_phase(card)
@@ -2627,9 +2786,9 @@ def main(argv=None) -> int:
     log(f"  phase 9 took {weights_out['seconds']:.1f} s [{card}]")
 
     log("[phase 10] Google's generator at 256 px, its counterfactual FID, the dispatch knobs, "
-        "the chunked sweep, the host utilities")
+        "the chunked sweep, the host utilities, the 256-px sweeps' upsample")
     t10 = time.perf_counter()
-    google_out = google_phase(card, summary)
+    google_out = google_phase(card, summary, rates)
     google_out["seconds"] = time.perf_counter() - t10
     log(f"  phase 10 took {google_out['seconds']:.1f} s [{card}]")
 
@@ -2675,6 +2834,9 @@ def main(argv=None) -> int:
              launches_google256=google_out["generator"]["launches_fused"][name],
              launches_google256_literal=google_out["generator"]["launches_literal"][name],
              launches_google_fid=google_out["fid_topk"]["launches"][name],
+             launches_google_sweep=google_out["sweeps"]["google256.latent_attfind"]["launches"][
+                 name],
+             launches_ffhq256_sweep=google_out["sweeps"]["ffhq256.attfind"]["launches"][name],
              launches_dispatch_blocks=google_out["dispatch"]["blocks"]["launches"][name],
              launches_chunked_sweep=google_out["chunked_sweep"]["run1_k8"]["launches"][name],
              launches_parallel_train=sum(
@@ -2712,8 +2874,9 @@ def main(argv=None) -> int:
         f"(launches_weights_step) plus (b) run_attfind on the inference load "
         f"(launches_weights_attfind); launches_google256 from one forward of Google's 256-px "
         f"generator at batch 8 on the fused graph (_literal on the literal one), "
-        f"launches_google_fid from phase 10 (b), launches_dispatch_blocks from (c)'s 7 steps in "
-        f"blocks of 4, launches_chunked_sweep from (d)'s run_attfind --chunks-per-dispatch 8, "
+        f"launches_google_fid from phase 10 (b), launches_google_sweep and "
+        f"launches_ffhq256_sweep from (f)'s float32 sweeps at the 256-px cells' parameters, "
+        f"launches_dispatch_blocks from (c)'s 7 steps in blocks of 4, launches_chunked_sweep from (d)'s run_attfind --chunks-per-dispatch 8, "
         f"launches_parallel_train and launches_parallel_sweep from phase 11's two ranks "
         f"(summed over both) of (a) 5 train steps and (b) run_attfind; "
         f"gen256 (float32) and gen256_bf16 sum phase 2's times over one literal-graph forward's "

@@ -18,6 +18,18 @@ Two sweeps give the same records:
   states are freed once its group is done;
 * flat: every perturbation runs the whole generator.
 
+The loop asks the model for its ``block_sizes`` and ``block_resolutions``,
+its phase 1 (``sweep_phase1``), the images of perturbed styles
+(``sweep_images``) and, after a D filter (``has_discriminator``), its
+block-entry states (``sweep_states``). The StylEx bundle
+offers them, and so does Google's published generator
+(:class:`~stylex_tpu_torch.models.google_stylex.GoogleStylExGenerator`),
+swept from dlatents: a block is then one resolution, phase 1 is the style
+vectors, the base image clipped to [-1, 1] and the classifier's logits of
+it mapped to [0, 1], and there is no encoder and no D. The extremes of each
+coordinate come from the call's own inputs or, with ``style_range``, from a
+larger pool (the notebook takes them over every dlatent it has).
+
 Chunks are issued back to back with no host read between them, and their
 outputs stay on the device: every ``chunks_per_dispatch`` chunks share one
 device-to-host copy of their concatenated effects, into pinned memory and
@@ -41,10 +53,12 @@ process.
 
 The host's work is in spans of :mod:`stylex_tpu_torch.utils.tracing`:
 ``attfind.call`` holds ``attfind.phase1``, ``attfind.capture``, one
-``attfind.block`` per generator block (unit: the block) with an
+``attfind.block`` per generator block (unit: the block; attributes ``res``,
+its resolution in pixels, and ``styles``, its perturbations) with an
 ``attfind.chunk`` per chunk issued and an ``attfind.copy`` per group's
 copy, and ``attfind.records``; ``attfind.wait`` is each synchronise, the
-sweep's closing one and each stage's end.
+sweep's closing one and each stage's end. The counter ``attfind.styles``
+adds each chunk's perturbations.
 
 The records keep the JAX package's layout (NHWC images, the same shapes)
 and the reference's ``style_change_records.hdf5`` schema. Where h5py is
@@ -64,11 +78,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from stylex_tpu_torch.config import Arch
 from stylex_tpu_torch.device import resolve_dtype, set_float32_precision, to_host_async
-from stylex_tpu_torch.models.stylex import StylEx, make_w
+from stylex_tpu_torch.models.stylex import StylEx
 from stylex_tpu_torch.ops.fusion import prefer_literal_resample
-from stylex_tpu_torch.ops.latents import expand_styles
 from stylex_tpu_torch.parallel.mesh import Mesh, coordinate_sharding, gather, replicated
 from stylex_tpu_torch.utils import tracing
 
@@ -91,31 +103,17 @@ class AttFindRecords:
     """In-memory mirror of ``style_change_records.hdf5``."""
 
     style_change: np.ndarray  # (N, 2, C, num_classes): [image, direction(min/max), sindex, class]
-    latents: np.ndarray  # (N, latent_dim)
+    latents: np.ndarray  # (N, latent_dim): w, or Google's dlatents
     base_prob: np.ndarray  # (N, num_classes) classifier logits of the base generated image
     minima: np.ndarray  # (C,)
     maxima: np.ndarray  # (C,)
     style_coordinates: np.ndarray  # (N, C)
-    original_images: np.ndarray  # (N, S, S, 3)
-    noise: np.ndarray  # (1, S, S, 1)
-    discriminator: np.ndarray  # (N, 1)
+    original_images: np.ndarray  # (N, S, S, 3) in [0, 1]: the inputs, or Google's base images
+    noise: np.ndarray  # (1, S, S, 1); zeros for Google's generator, which takes none
+    discriminator: np.ndarray  # (N, 1); NaN for Google's generator: no D ran
     # seconds from the start of the extraction to the end of each stage
     # (not written to the hdf5: the reference schema has no such dataset)
     stage_walls: Optional[Dict[str, float]] = None
-
-
-def _phase1(model: StylEx, classify: Classify, images, noise, capture: bool):
-    """Encode -> w -> generate (+ coords, + block states) -> D score -> base logits."""
-    cfg = model.cfg
-    w = make_w(cfg, model.encode(images), classify(images))
-    out = model.generate(expand_styles(w, model.num_layers), noise, capture_states=capture)
-    gen, coords = out[0], out[1]
-    base_logits = classify(gen)
-    if cfg.arch == Arch.NEW:
-        d = model.discriminate(gen, torch.softmax(base_logits, dim=-1))
-    else:
-        d = model.discriminate(gen)
-    return w, coords, d, base_logits, (out[2] if capture else None)
 
 
 def _cat_states(parts: List[list]) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
@@ -127,17 +125,14 @@ def _cat_states(parts: List[list]) -> List[Tuple[torch.Tensor, Optional[torch.Te
     ]
 
 
-def _capture_states(model: StylEx, w_all, noise, batch: int):
-    """Block-entry states of every image, one generator forward per batch."""
-    parts = []
-    for start in range(0, w_all.shape[0], batch):
-        w = w_all[start:start + batch]
-        parts.append(model.generate(expand_styles(w, model.num_layers), noise,
-                                    capture_states=True)[2])
-    return _cat_states(parts)
+def _capture_states(model, w_all, noise, batch: int):
+    """Block-entry states of every image, one generator forward per batch
+    (after the D filter)."""
+    return _cat_states([model.sweep_states(w_all[start:start + batch], noise)
+                        for start in range(0, w_all.shape[0], batch)])
 
 
-def _sweep_chunk(model: StylEx, classify: Classify, w_all, noise, coords_all, minima,
+def _sweep_chunk(model, classify: Classify, w_all, noise, coords_all, minima,
                  maxima, base_all, img_idx, coord_idx, is_max, shift_size: float,
                  start_block: int = 0, states=None):
     """Classifier logit changes of one chunk of perturbations."""
@@ -150,11 +145,8 @@ def _sweep_chunk(model: StylEx, classify: Classify, w_all, noise, coords_all, mi
     if states is not None:
         x_st, rgb_st = states
         initial_state = (x_st[img_idx], None if rgb_st is None else rgb_st[img_idx])
-    gen, _ = model.generate(
-        expand_styles(w_all[img_idx], model.num_layers), noise, style_delta=deltas,
-        start_block=start_block, initial_state=initial_state,
-    )
-    return classify(gen) - base_all[img_idx]
+    images = model.sweep_images(w_all[img_idx], noise, deltas, start_block, initial_state)
+    return classify(images) - base_all[img_idx]
 
 
 def _sweep_ids(n_images: int, offset: int, size: int, device):
@@ -177,8 +169,12 @@ def _gather_chunks(local: torch.Tensor, sizes: List[int], mesh: Mesh) -> torch.T
                       for part, p, n in zip(ranks.split(per, dim=1), per, sizes)])
 
 
-def _to_nchw(images: np.ndarray, device, dtype) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2))).to(device, dtype)
+def _to_device(inputs: np.ndarray, device, dtype) -> torch.Tensor:
+    """A batch of the sweep's inputs on the device: NHWC images as NCHW,
+    dlatents as they are."""
+    if inputs.ndim == 4:
+        inputs = np.ascontiguousarray(inputs.transpose(0, 3, 1, 2))
+    return torch.from_numpy(inputs).to(device, dtype)
 
 
 def _wait(device, sync: Callable) -> None:
@@ -201,10 +197,10 @@ def _call_span(fn):
 @torch.no_grad()
 @prefer_literal_resample()
 def attfind_extraction(
-    model: StylEx,
+    model,
     classifier_fn: Classify,
     images: np.ndarray,
-    noise: np.ndarray,
+    noise: Optional[np.ndarray] = None,
     shift_size: float = 1.0,
     discriminator_threshold: Optional[float] = None,
     use_discriminator: bool = False,
@@ -216,20 +212,24 @@ def attfind_extraction(
     compute_dtype=None,
     chunks_per_dispatch: int = 8,
     mesh: Optional[Mesh] = None,
+    style_range: Optional[Tuple[np.ndarray, np.ndarray]] = None,
 ) -> AttFindRecords:
     """Run the full AttFind extraction over a set of images.
 
     It runs on the device that holds ``model``.
 
     Args:
-      model: the StylEx bundle; its weights must be in ``compute_dtype``.
+      model: the StylEx bundle or Google's generator (swept from
+        dlatents), its weights in ``compute_dtype``.
       classifier_fn: (B, 3, S, S) images in [0, 1] -> (B, num_classes)
         logits, e.g. ``ClassifierBundle.classify_images`` with its weights
         in ``compute_dtype``.
-      images: (P, S, S, 3) candidate images in [0, 1], NHWC. With
-        ``use_discriminator``, pass more than ``num_images``: the first
-        ``num_images`` survivors are kept.
-      noise: (1, S, S, 1) fixed noise image shared by every forward.
+      images: (P, S, S, 3) candidate images in [0, 1], NHWC; for Google's
+        generator (P, dlatent_dim) dlatents. With ``use_discriminator``,
+        pass more than ``num_images``: the first ``num_images`` survivors
+        are kept.
+      noise: (1, S, S, 1) fixed noise image shared by every forward; None
+        for Google's generator, which takes none.
       shift_size: multiplier on the (extreme - current) shifts.
       discriminator_threshold: keep images whose D score is below it.
       coord_batch: perturbations per chunk.
@@ -243,17 +243,21 @@ def attfind_extraction(
       mesh: a data-parallel mesh whose ranks split each chunk (every rank
         calls with the same arguments and gets the same records); None or
         a mesh without a process group: one process.
+      style_range: (C,) minima and maxima of every coordinate, e.g. over a
+        pool of dlatents; by default those of the images that enter the
+        sweep.
 
     Returns:
       :class:`AttFindRecords`; ``stage_walls`` holds the time at the end of
       each stage (the device is synchronised at each stage's end).
     """
-    cfg = model.cfg
     dtype = resolve_dtype(compute_dtype)
     param = next(model.parameters())
     if param.dtype != dtype:
         raise ValueError(f"model weights are {param.dtype}, compute dtype is {dtype}: "
                          "cast the model (and classifier) with .to(dtype) first")
+    if use_discriminator and not model.has_discriminator:
+        raise ValueError(f"{type(model).__name__} comes without a discriminator to filter by")
     device = param.device
     if dtype == torch.float32:
         set_float32_precision()
@@ -272,7 +276,8 @@ def attfind_extraction(
         coord_batch = math.ceil(coord_batch / mesh.world_size) * mesh.world_size
     images = np.asarray(images, np.float32)
     P = images.shape[0]
-    noise_t = torch.from_numpy(np.asarray(noise, np.float32)).to(device, dtype)
+    noise_t = None if noise is None else torch.from_numpy(
+        np.asarray(noise, np.float32)).to(device, dtype)
     use_filter = use_discriminator and discriminator_threshold is not None
     capture = block_resume and not use_filter
 
@@ -280,10 +285,12 @@ def attfind_extraction(
     with tracing.span("attfind.phase1"):
         parts = []
         for start in range(0, P, phase1_batch):
-            chunk = _to_nchw(images[start:start + phase1_batch], device, dtype)
-            parts.append(_phase1(model, classifier_fn, chunk, noise_t, capture))
+            chunk = _to_device(images[start:start + phase1_batch], device, dtype)
+            parts.append(model.sweep_phase1(chunk, classifier_fn, noise_t, capture))
         w_all, coords_all, d_all, base_all = (torch.cat([p[i] for p in parts]) for i in range(4))
         states = _cat_states([p[4] for p in parts]) if capture else None
+        # the model's own base images, where its inputs are no images
+        shown = None if parts[0][5] is None else torch.cat([p[5] for p in parts])
         del parts
         if mesh is not None:  # rank 0's phase 1: the filter and records agree
             replicated(mesh, [w_all, coords_all, d_all, base_all])
@@ -306,9 +313,12 @@ def attfind_extraction(
         mark("discriminator_filter")
     else:
         w_all, coords_all, d_all, base_all = (t[:N] for t in (w_all, coords_all, d_all, base_all))
-    # elementwise min/max over the images that enter the sweep
-    minima = coords_all.min(dim=0).values
-    maxima = coords_all.max(dim=0).values
+    if style_range is None:  # elementwise min/max over the images that enter the sweep
+        minima = coords_all.min(dim=0).values
+        maxima = coords_all.max(dim=0).values
+    else:
+        minima, maxima = (torch.as_tensor(np.asarray(r, np.float32)).to(device, dtype)
+                          for r in style_range)
 
     K = max(1, int(chunks_per_dispatch))
 
@@ -317,15 +327,18 @@ def attfind_extraction(
         group, sizes, host = [], [], []
         for s in range(0, total, coord_batch):
             rows = slice(s, s + coord_batch)
+            n = min(coord_batch, total - s)
+            issued = n
             if mesh is not None:  # this rank's share, the last id repeated as padding
-                n = min(coord_batch, total - s)
                 part = coordinate_sharding(mesh, n)
                 rows = torch.arange(part.start, part.stop, device=device).clamp(max=n - 1) + s
+                issued = max(0, min(part.stop, n) - part.start)
                 sizes.append(n)
             with tracing.span("attfind.chunk"):
                 group.append(_sweep_chunk(
                     model, classifier_fn, w_all, noise_t, coords_all, minima, maxima, base_all,
                     img[rows], coord[rows], is_max[rows], shift_size, start_block, block_states))
+            tracing.count("attfind.styles", issued)
             if len(group) == K or s + coord_batch >= total:
                 with tracing.span("attfind.copy"):
                     effects = torch.cat(group).float()
@@ -348,9 +361,8 @@ def attfind_extraction(
         mark("capture_states")
         per_block = []
         offset = 0
-        for k, (in_chan, out_chan) in enumerate(model.G.block_dims):
-            with tracing.span("attfind.block", unit=k):
-                size = in_chan + out_chan
+        for k, (size, res) in enumerate(zip(model.block_sizes, model.block_resolutions)):
+            with tracing.span("attfind.block", unit=k, res=res, styles=N * 2 * size):
                 eff = run_sweep(N * 2 * size, _sweep_ids(N, offset, size, device), k, states[k])
                 per_block.append(eff.reshape(N, 2, size, -1))
                 # block k's states are dead once its group is done
@@ -364,6 +376,9 @@ def attfind_extraction(
         mark("sweep")
 
     host = lambda t: t.float().cpu().numpy()
+    originals = images[keep] if shown is None else host(shown[:N])
+    if noise is None:
+        noise = np.zeros((1, *originals.shape[1:3], 1), np.float32)
     with tracing.span("attfind.records"):
         records = AttFindRecords(
             style_change=style_change.astype(np.float32),
@@ -372,7 +387,7 @@ def attfind_extraction(
             minima=host(minima),
             maxima=host(maxima),
             style_coordinates=host(coords_all),
-            original_images=images[keep],
+            original_images=originals,
             noise=np.asarray(noise, np.float32),
             discriminator=host(d_all)[:, None],
             stage_walls=stage_walls,
@@ -391,8 +406,9 @@ def find_discriminator_threshold(model: StylEx, classifier_fn: Classify, images:
     images = np.asarray(images, np.float32)
     outs = []
     for start in range(0, images.shape[0], phase1_batch):
-        chunk = _to_nchw(images[start:start + phase1_batch], param.device, param.dtype)
-        outs.append(_phase1(model, classifier_fn, chunk, noise_t, False)[2].float().cpu().numpy())
+        chunk = _to_device(images[start:start + phase1_batch], param.device, param.dtype)
+        outs.append(model.sweep_phase1(chunk, classifier_fn, noise_t, False)[2]
+                    .float().cpu().numpy())
     return np.concatenate(outs)
 
 

@@ -23,7 +23,14 @@ package's upsample kernel on CUDA tensors: on the RGB skip at every
 resolution, and at the block entries in the fused graph's border strips or
 the literal graph's upsample, chosen per call by
 :func:`~stylex_tpu_torch.ops.fusion.resample_fusion_enabled` as the JAX
-package does. The style affines are plain matrix products.
+package does. The style affines are plain matrix products. Synthesis
+resumes at a resolution from that resolution's cached entry state, as the
+StylEx generator resumes at a block, and it offers the StylEx bundle's
+``sweep_phase1``, ``sweep_images``, ``block_sizes`` and
+``block_resolutions`` (no D, so no filter and no ``sweep_states``), so the
+AttFind sweep runs this generator too
+(:func:`~stylex_tpu_torch.attfind.extraction.attfind_extraction` from
+dlatents).
 
 Weights come from :func:`stylex_tpu_torch.ingest_tf.convert_google_generator`
 (a TensorFlow SavedModel), from the JAX package's tree through
@@ -46,6 +53,8 @@ from stylex_tpu_torch.device import resolve_device
 from stylex_tpu_torch.ops.blur import upsample2x_bilinear
 from stylex_tpu_torch.ops.fusion import resample_fusion_enabled
 from stylex_tpu_torch.ops.modconv import modulated_conv2d, modulated_upsample_conv2d
+
+State = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 __all__ = [
     "GoogleStylExSpec",
@@ -125,6 +134,15 @@ class GoogleStylExSpec:
     def total_style_coords(self) -> int:
         return sum(self.layer_shapes)
 
+    @property
+    def block_sizes(self) -> List[int]:
+        """StyleSpace coordinates per synthesis block, one block a
+        resolution: 512, 1,024, 1,024, 1,024, 768, 384, 192 at 256 px."""
+        per = {res: 0 for res in self.resolutions}
+        for res, cin, _ in self.conv_specs:
+            per[res] += cin
+        return [per[res] for res in self.resolutions]
+
     def sindex_to_layer_and_index(self, sindex: int) -> Tuple[int, int]:
         return sindex_to_layer_and_index(self.layer_shapes, sindex)
 
@@ -144,12 +162,19 @@ class _StyledConv(nn.Module):
         return w @ self.style_kernel.to(w.dtype) + self.style_bias.to(w.dtype)
 
 
+def _to_unit(img: torch.Tensor) -> torch.Tensor:
+    """An image clipped to [-1, 1], mapped to the classifier's [0, 1]."""
+    return (img.clamp(-1.0, 1.0) + 1.0) / 2.0
+
+
 class GoogleStylExGenerator(nn.Module):
     """The generator of ``spec``, with weights from ``seed`` (the JAX
     package's init distributions, drawn on the host from a
     ``torch.Generator``), placed on ``device``: the GPU unless ``'cpu'``.
-    Parameters stay float32; a bfloat16 dlatent runs the forward in
-    bfloat16."""
+    Parameters are float32 unless cast; the forward runs in the dlatent's
+    dtype."""
+
+    has_discriminator = False
 
     def __init__(self, spec: Optional[GoogleStylExSpec] = None, seed: int = 0, device=None):
         super().__init__()
@@ -174,31 +199,77 @@ class GoogleStylExGenerator(nn.Module):
     def total_style_coords(self) -> int:
         return self.spec.total_style_coords
 
+    @property
+    def block_sizes(self) -> List[int]:
+        return self.spec.block_sizes
+
+    @property
+    def block_resolutions(self) -> List[int]:
+        return self.spec.resolutions
+
+    def sweep_phase1(self, w, classify, noise, capture: bool):
+        """AttFind's phase 1 of (B, dlatent_dim) dlatents (``noise`` unused:
+        the generator takes none). Returns ``(w, coords, d, base_logits,
+        states, images)``: the style vectors concatenated, no D (NaN), the
+        logits of the base image clipped and mapped to [0, 1], the
+        resolution-entry states, and that image NHWC."""
+        coords = torch.cat(self.style_vectors(w)[0], dim=-1)
+        out = self.synthesize(w, capture_states=capture)
+        img, states = out if capture else (out, None)
+        img = _to_unit(img)
+        d = torch.full((w.shape[0],), float("nan"), dtype=w.dtype, device=w.device)
+        return w, coords, d, classify(img), states, img.permute(0, 2, 3, 1)
+
+    def sweep_images(self, w, noise, style_delta, start_block: int = 0, initial_state=None):
+        """The images the classifier scores for perturbed styles, clipped
+        and mapped to [0, 1], resumed at ``start_block`` from
+        ``initial_state``."""
+        return _to_unit(self.synthesize(w, style_delta, start_block, initial_state))
+
     def style_vectors(self, w: torch.Tensor):
         """The per-conv and per-to-RGB style lists of a (B, dlatent_dim)
         dlatent."""
         return [c.style(w) for c in self.convs], [t.style(w) for t in self.torgbs]
 
-    def synthesize(self, w: torch.Tensor,
-                   style_delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def synthesize(self, w: torch.Tensor, style_delta: Optional[torch.Tensor] = None,
+                   start_block: int = 0, initial_state: Optional[State] = None,
+                   capture_states: bool = False):
         """(B, dlatent_dim) dlatent -> (B, 3, S, S) image, not clipped.
 
         ``style_delta`` (B, total_style_coords) adds to the concatenated
-        conv styles: the notebook's bias mutation as an input."""
-        conv_styles, torgb_styles = self.style_vectors(w)
-        if style_delta is not None:
-            widths = [s.shape[-1] for s in conv_styles]
-            deltas = torch.split(style_delta.to(w.dtype), widths, dim=-1)
-            conv_styles = [s + dlt for s, dlt in zip(conv_styles, deltas)]
-        x = self.const.to(w.dtype).expand(w.shape[0], -1, -1, -1)
-        rgb, i = None, 0
-        for res_i, res in enumerate(self.spec.resolutions):
-            for k in range(1 if res == 4 else 2):
+        conv styles: the notebook's bias mutation as an input.
+
+        A block is one resolution: the 4-px conv, or a higher resolution's
+        up-conv and conv, then that resolution's to-RGB. Its entry state
+        is ``(x, rgb)``, the previous resolution's features and image before
+        their upsample (the constant and None at 4 px). A perturbation in
+        block k changes nothing upstream of it, so a sweep resumes at
+        ``start_block`` k from the cached ``initial_state``, as
+        :meth:`~stylex_tpu_torch.models.generator.Generator.forward` does;
+        only the styles of blocks k.. are computed. ``capture_states``
+        returns ``(image, states)``, every run block's entry state."""
+        spec = self.spec
+        if initial_state is not None:
+            x, rgb = initial_state
+        elif start_block == 0:
+            x, rgb = self.const.to(w.dtype).expand(w.shape[0], -1, -1, -1), None
+        else:
+            raise ValueError("start_block > 0 requires initial_state=(x, rgb)")
+        offsets = np.cumsum([0] + spec.layer_shapes).tolist()
+        states = []
+        i = 0 if start_block == 0 else 2 * start_block - 1  # the block's first conv
+        for b in range(start_block, len(spec.resolutions)):
+            if capture_states:
+                states.append((x, rgb))
+            for k in range(1 if b == 0 else 2):
                 conv = self.convs[i]
+                style = conv.style(w)
+                if style_delta is not None:
+                    style = style + style_delta[:, offsets[i]:offsets[i + 1]].to(w.dtype)
                 # the affine output modulates directly; modulated_conv2d adds 1
-                style = conv_styles[i] - 1.0
+                style = style - 1.0
                 weight = conv.weight.to(x.dtype)
-                if res != 4 and k == 0:
+                if b != 0 and k == 0:
                     if weight.shape[2:] == (3, 3) and x.shape[2] >= 2 and \
                             resample_fusion_enabled():
                         x = modulated_upsample_conv2d(x, weight, style, demod=True)
@@ -208,12 +279,11 @@ class GoogleStylExGenerator(nn.Module):
                     x = modulated_conv2d(x, weight, style, demod=True)
                 x = F.leaky_relu(x + conv.bias.to(x.dtype)[None, :, None, None], 0.2)
                 i += 1
-            t = self.torgbs[res_i]
-            y = modulated_conv2d(x, t.weight.to(x.dtype), torgb_styles[res_i] - 1.0,
-                                 demod=False)
+            t = self.torgbs[b]
+            y = modulated_conv2d(x, t.weight.to(x.dtype), t.style(w) - 1.0, demod=False)
             y = y + t.bias.to(y.dtype)[None, :, None, None]
             rgb = y if rgb is None else upsample2x_bilinear(rgb) + y
-        return rgb
+        return (rgb, states) if capture_states else rgb
 
     def call_synthesis(self, dlatents: torch.Tensor,
                        style_delta: Optional[torch.Tensor] = None) -> torch.Tensor:

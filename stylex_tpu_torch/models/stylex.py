@@ -13,11 +13,15 @@ with ``load_state_dict`` (see :mod:`stylex_tpu_torch.models.convert`).
 
 The encoder is D's trunk in 'encoder' mode (attention and quantize layers
 included), or with ``encoder_class`` one of the debug encoders.
+
+The ``sweep_*`` methods and ``block_sizes`` / ``block_resolutions`` are what
+the AttFind sweep (:mod:`stylex_tpu_torch.attfind.extraction`) asks of a
+model; Google's generator offers the same.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
@@ -29,6 +33,7 @@ from stylex_tpu_torch.models.discriminator import DiscriminatorE
 from stylex_tpu_torch.models.generator import Conv2DMod, Generator, InitialBlockConv
 from stylex_tpu_torch.models.layers import Conv2d, EqualLinear, Linear
 from stylex_tpu_torch.models.mapping import StyleVectorizer
+from stylex_tpu_torch.ops.latents import expand_styles
 from stylex_tpu_torch.ops.vq import VectorQuantize
 
 __all__ = ["StylEx", "build_stylex", "make_w", "prior_w", "ema_update"]
@@ -37,6 +42,8 @@ _SEEDED = (Linear, Conv2d, EqualLinear, Conv2DMod, Generator, InitialBlockConv, 
 
 
 class StylEx(nn.Module):
+    has_discriminator = True
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
@@ -88,6 +95,40 @@ class StylEx(nn.Module):
     def discriminate(self, images: torch.Tensor,
                      probabilities: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.D(images, probabilities)
+
+    @property
+    def block_sizes(self) -> List[int]:
+        """StyleSpace coordinates per generator block."""
+        return [i + o for i, o in self.G.block_dims]
+
+    @property
+    def block_resolutions(self) -> List[int]:
+        return [4 * 2 ** k for k in range(len(self.G.block_dims))]
+
+    def sweep_phase1(self, images, classify, noise, capture: bool):
+        """AttFind's phase 1 of (B, 3, S, S) images in [0, 1]: encode -> w
+        -> generate (+ coords, + block states) -> D score -> base logits.
+        Returns ``(w, coords, d, base_logits, states, None)``: the inputs
+        are the records' original images."""
+        w = make_w(self.cfg, self.encode(images), classify(images))
+        out = self.generate(expand_styles(w, self.num_layers), noise, capture_states=capture)
+        gen, coords = out[0], out[1]
+        base_logits = classify(gen)
+        if self.cfg.arch == Arch.NEW:
+            d = self.discriminate(gen, torch.softmax(base_logits, dim=-1))
+        else:
+            d = self.discriminate(gen)
+        return w, coords, d, base_logits, (out[2] if capture else None), None
+
+    def sweep_states(self, w, noise):
+        """Every block's entry state of one generator forward of ``w``."""
+        return self.generate(expand_styles(w, self.num_layers), noise, capture_states=True)[2]
+
+    def sweep_images(self, w, noise, style_delta, start_block: int = 0, initial_state=None):
+        """The images the classifier scores for perturbed styles, resumed at
+        ``start_block`` from ``initial_state``."""
+        return self.generate(expand_styles(w, self.num_layers), noise, style_delta=style_delta,
+                             start_block=start_block, initial_state=initial_state)[0]
 
 
 def build_stylex(cfg: ModelConfig, seed: int = 0, device=None) -> StylEx:

@@ -109,7 +109,7 @@ def main(argv=None) -> None:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from stylex_tpu_torch.attfind.extraction import _phase1, _sweep_chunk
+    from stylex_tpu_torch.attfind.extraction import _sweep_chunk
     from stylex_tpu_torch.config import ModelConfig
     from stylex_tpu_torch.data import SyntheticImageDataset
     from stylex_tpu_torch.device import resolve_device
@@ -129,8 +129,8 @@ def main(argv=None) -> None:
 
     # the sweep's graph: literal resampling, as attfind_extraction runs it
     with torch.no_grad(), prefer_literal_resample():
-        w, coords, _, base, states = _phase1(model, clf.classify_images,
-                                             images.to(device, dtype), noise, True)
+        w, coords, _, base, states, _ = model.sweep_phase1(images.to(device, dtype),
+                                                           clf.classify_images, noise, True)
         mins, maxs = coords.min(0).values, coords.max(0).values
         ar = torch.arange(cb, device=device)
         lo = sum(i + o for i, o in model.G.block_dims[:args.start_block])

@@ -149,6 +149,19 @@ Phases, in order; any failure exits non-zero:
    must launch both, while no-grad and bfloat16 convolutions launch
    neither.
 
+13. The classifiers' batch-norm kernel (``csrc/frozen_bn.cu``,
+   ``ops/frozen_bn.py``), float32 and bfloat16: at every batch norm of
+   MobileNetV2 at 512 x 256 px and 512 x 64 px (with its ReLU6 and
+   residual add) against the plain chain bit for bit, with its ms, device
+   ms, host microseconds, the device ms's share of the bytes bound, the
+   plain chain's and ``F.batch_norm``'s ms, and NaN and infinite inputs;
+   one classifier forward on a sweep chunk at each size and dtype fused
+   and on the plain chain, logits equal bit for bit, 52 layers on each
+   path; a sweep at the 64-px config in each dtype with every classifier
+   forward fused and records equal to the plain chain's; one train step at
+   the CLI defaults with MobileNetV2, its autograd forwards on the plain
+   chain. Phase 3's bfloat16 sweeps must launch the kernel too.
+
 Phase 2 also holds the blur fused with 2x decimation, which no path runs,
 at the D/E shapes of training. The script prints a ``kernels`` JSON line
 and, last, the ``ok`` JSON line. Details go to
@@ -159,7 +172,8 @@ and, last, the ``ok`` JSON line. Details go to
 runs phases 1-2 alone; with ``--package-root`` it times the kernels of
 another checkout (an unpacked parent commit) with this script's phase 2.
 ``python3 chip_smoke.py --conv-only`` runs phases 1 and 12 alone (details
-in ``chiprun_out/chip_smoke_conv.json``); ``--google-only`` phases 1, 2
+in ``chiprun_out/chip_smoke_conv.json``); ``--bn-only`` phases 1 and 13
+(``chiprun_out/chip_smoke_bn.json``); ``--google-only`` phases 1, 2
 and 10 (details in ``chiprun_out/chip_smoke_google.json``).
 ``python3 chip_smoke.py --parallel-only [--cards N]`` runs phases 1 and
 11 alone; with ``--cards N`` phase 11 also runs on N cards, one rank each
@@ -507,6 +521,8 @@ def main_path_phase(card: str):
         for name in ON_PATH:
             if launches[name] <= 0:
                 raise AssertionError(f"{label}: kernel {name} was not launched on the main path")
+        if launches["frozen_bn"] <= 0:  # the classifier's batch norms, bfloat16
+            raise AssertionError(f"{label}: the classifier launched no frozen_bn")
 
     checks = {}
     # float32 (TF32 off): the two sweeps compute the same function, so they
@@ -2683,6 +2699,325 @@ def columns_summary(columns_out) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 13
+
+BN_BATCH = 512  # the sweep's chunk (coord_batch) in the 64- and 256-px cells
+
+
+def batch_norm_calls(input_shape) -> list:
+    """``(shape, relu6, residual)`` of every batch norm of one eval-mode
+    MobileNetV2 forward over an input of ``input_shape``, in order: the
+    shape it normalises, whether it applies ReLU6, whether it adds a
+    residual. The network runs on the meta device: nothing is computed, at
+    any size."""
+    from stylex_tpu_torch.models.classifiers import FrozenBatchNorm2d, MobileNetV2
+
+    with torch.device("meta"):
+        net = MobileNetV2().eval()
+    calls = []
+
+    def record(module, args):
+        residual = args[1] if len(args) > 1 else None
+        calls.append((tuple(args[0].shape), module.act == "relu6", residual is not None))
+
+    for m in net.modules():
+        if isinstance(m, FrozenBatchNorm2d):
+            m.register_forward_pre_hook(record)
+    with torch.no_grad():
+        net(torch.empty(input_shape, device="meta"))
+    return calls
+
+
+@contextlib.contextmanager
+def _plain_batch_norm():
+    """Every classifier batch norm on the plain chain: no tensor counts as
+    lying where the kernel runs while the block runs."""
+    from stylex_tpu_torch.ops import frozen_bn as fbn
+
+    real = fbn.takes_kernel
+    fbn.takes_kernel = lambda *_: False
+    try:
+        yield
+    finally:
+        fbn.takes_kernel = real
+
+
+def _bn_counters(fn):
+    """``fn()`` with spans and counters recorded: its result, the
+    ``classifier.bn_fused`` and ``classifier.bn_plain`` counts and the
+    ``frozen_bn`` launches."""
+    from stylex_tpu_torch.ops import LAUNCHES, reset_launches
+    from stylex_tpu_torch.utils import tracing
+
+    tracing.reset()
+    reset_launches()
+    with tracing.recording():
+        out = fn()
+    torch.cuda.synchronize()
+    counters = tracing.snapshot()["counters"]
+    tracing.reset()
+    return out, dict(fused=counters.get("classifier.bn_fused", 0),
+                     plain=counters.get("classifier.bn_plain", 0),
+                     launches=LAUNCHES["frozen_bn"])
+
+
+def _seeded_mobilenet(size: int, dtype, seed: int = 0):
+    """A MobileNetV2 bundle on the card in ``dtype`` with running
+    statistics, weights and biases of its batch norms drawn away from
+    torchvision's 0 and 1."""
+    from stylex_tpu_torch.models import build_classifier
+    from stylex_tpu_torch.models.classifiers import FrozenBatchNorm2d
+
+    clf = build_classifier("mobilenet", size, seed=seed, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in clf.net.modules():
+            if isinstance(m, FrozenBatchNorm2d):
+                c = m.num_features
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=gen, device="cuda"))
+                m.running_var.copy_(0.75 + 0.5 * torch.rand(c, generator=gen, device="cuda"))
+                m.weight.copy_(0.5 + torch.rand(c, generator=gen, device="cuda"))
+                m.bias.copy_(0.1 * torch.randn(c, generator=gen, device="cuda"))
+    return clf.to(dtype)
+
+
+def _bn_operands(shape, residual: bool, dtype, gen):
+    """y, its residual or None, and the channels' mean, var, weight, scale
+    (rsqrt(var + eps) * weight in ``dtype``, as the module computes it) and
+    bias; y spread wide enough to reach both clamps."""
+    c = shape[1]
+    y = torch.randn(shape, generator=gen, device="cuda").mul_(3.0).to(dtype)
+    res = torch.randn(shape, generator=gen, device="cuda").to(dtype) if residual else None
+    mean, weight, bias = (torch.randn(c, generator=gen, device="cuda").to(dtype)
+                          for _ in range(3))
+    var = (torch.rand(c, generator=gen, device="cuda") + 0.25).to(dtype)
+    return y, res, mean, var, weight, torch.rsqrt(var + 1e-5) * weight, bias
+
+
+def batch_norm_phase(card: str, rates):
+    """Phase 13: the classifiers' batch-norm kernel, float32 and bfloat16.
+    (a) At every batch norm of MobileNetV2 at 512 x 256 px and 512 x 64 px
+    (shape, ReLU6, residual as one forward hands them over): the kernel
+    against the plain chain bit for bit; its ms by CUDA events around
+    back-to-back calls, its device ms by a replayed CUDA graph, its host
+    microseconds a call, and the device ms's share of the bytes bound (y
+    and the residual read once, the output written once); the plain chain's
+    and (float32) ``F.batch_norm``'s ms; NaN and infinities at two shapes.
+    (b) One classifier forward on a sweep chunk at each size and dtype:
+    logits on the fused path equal to the plain chain's bit for bit, 52
+    fused layers and 52 launches against 52 plain ones, and both timed. (c)
+    An AttFind sweep at the 64-px config in each dtype: every classifier
+    forward fused (52 counted a forward, none plain), records equal to the
+    plain chain's bit for bit. (d) One train step at the CLI defaults with
+    MobileNetV2: its autograd forwards counted plain, its no-grad ones
+    fused."""
+    import torch.nn.functional as F
+
+    from stylex_tpu_torch.ops import frozen_bn as fbn
+
+    out = {}
+    dtypes = (torch.float32, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    # (a) the kernel at every batch-norm shape
+    rows = []
+    for size in (256, 64):
+        calls = batch_norm_calls((BN_BATCH, 3, size, size))
+        reps = 5 if size == 256 else 20
+        for dtype in dtypes:
+            for shape, relu6, residual in sorted(set(calls), key=lambda c: -int(np.prod(c[0]))):
+                y, res, mean, var, weight, scale, bias = _bn_operands(shape, residual, dtype, gen)
+                got = fbn.frozen_bn(y, mean, scale, bias, res, relu6)
+                want = fbn.frozen_bn_plain(y, mean, scale, bias, res, relu6)
+                equal = torch.equal(got, want)
+                err = 0.0 if equal else float((got.float() - want.float()).abs().max())
+                del got, want
+                torch.cuda.empty_cache()
+
+                def kernel(t):
+                    return fbn.frozen_bn(t, mean, scale, bias, res, relu6)
+
+                def plain(t):
+                    return fbn.frozen_bn_plain(t, mean, scale, bias, res, relu6)
+
+                def library(t):
+                    return F.batch_norm(t, mean, var, weight, bias, False, 0.0, 1e-5)
+
+                bound = y.element_size() * y.numel() * (3 if residual else 2) / rates[0] * 1e3
+                row = dict(size=size, dtype=str(dtype).split(".")[-1], shape=list(shape),
+                           relu6=relu6, residual=residual,
+                           layers=calls.count((shape, relu6, residual)), equal=equal,
+                           max_abs_err=err, ms=time_ms(kernel, y, reps=reps, loops=3),
+                           device_ms=device_ms(kernel, y, reps=reps, loops=3),
+                           host_us=host_us(kernel, y, calls=50),
+                           plain_ms=time_ms(plain, y, reps=reps, loops=3),
+                           library_ms=(time_ms(library, y, reps=reps, loops=3)
+                                       if dtype == torch.float32 else None),
+                           bound_ms=bound)
+                row["bound_share"] = bound / row["device_ms"]
+                rows.append(row)
+                library_ms = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+                log(f"  (a) {row['dtype']:8s} {str(shape):22s} relu6 {int(relu6)} residual "
+                    f"{int(residual)} x{row['layers']}: bit for bit {equal} (max abs err "
+                    f"{err:.3g}), ms {row['ms']:.4f}, device_ms {row['device_ms']:.4f} "
+                    f"({row['bound_share']:.3f} of the bytes bound {bound:.4f} ms), host_us "
+                    f"{row['host_us']:.2f}, plain {row['plain_ms']:.4f} ms, F.batch_norm "
+                    f"{library_ms} ms [{card}]")
+                del y, res
+                torch.cuda.empty_cache()
+    # NaN, infinities and a zero scale, at a ragged plane and an aligned one
+    special = []
+    for dtype in dtypes:
+        for shape in ((64, 24, 7, 9), (64, 24, 8, 8)):
+            y, res, mean, _, _, scale, bias = _bn_operands(shape, True, dtype, gen)
+            y.view(-1)[::5] = float("nan")
+            y.view(-1)[1::7] = float("inf")
+            y.view(-1)[2::7] = -float("inf")
+            res.view(-1)[3::11] = float("inf")
+            scale[1] = 0.0
+            for relu6 in (False, True):
+                for r in (None, res):
+                    got = fbn.frozen_bn(y, mean, scale, bias, r, relu6)
+                    want = fbn.frozen_bn_plain(y, mean, scale, bias, r, relu6)
+                    special.append(bool(torch.equal(got.isnan(), want.isnan()) and torch.equal(
+                        got.nan_to_num(), want.nan_to_num())))
+    out["kernel_rows"] = rows
+    out["nan_inf_equal"] = all(special)
+    log(f"  (a) NaN, +-inf, a zero scale: equal to the plain chain (NaN where it is NaN) "
+        f"{all(special)} over {len(special)} cases [{card}]")
+
+    # (b) one classifier forward on a sweep chunk, fused against plain
+    forwards = {}
+    for size in (256, 64):
+        for dtype in dtypes:
+            clf = _seeded_mobilenet(size, dtype)
+            images = torch.rand(BN_BATCH, 3, size, size, generator=gen, device="cuda").to(dtype)
+            with torch.no_grad():
+                fused, fused_n = _bn_counters(lambda: clf.classify_images(images))
+                with _plain_batch_norm():
+                    plain, plain_n = _bn_counters(lambda: clf.classify_images(images))
+                ms_fused = time_ms(clf.classify_images, images, reps=5, loops=3)
+                with _plain_batch_norm():
+                    ms_plain = time_ms(clf.classify_images, images, reps=5, loops=3)
+            equal = torch.equal(fused, plain)
+            label = f"{size}_{str(dtype).split('.')[-1]}"
+            forwards[label] = dict(equal=equal, fused=fused_n, plain=plain_n, ms_fused=ms_fused,
+                                   ms_plain=ms_plain)
+            log(f"  (b) MobileNetV2 forward, {BN_BATCH} x {size} px, {dtype}: logits fused == "
+                f"plain {equal}; fused path {fused_n}, plain path {plain_n}; {ms_fused:.3f} ms "
+                f"fused, {ms_plain:.3f} ms plain [{card}]")
+            del clf, images
+            torch.cuda.empty_cache()
+    out["forwards"] = forwards
+
+    # (c) a sweep: every classifier forward fused, the records as the plain chain's
+    from stylex_tpu_torch.attfind import attfind_extraction
+    from stylex_tpu_torch.config import ModelConfig
+    from stylex_tpu_torch.data import SyntheticImageDataset
+    from stylex_tpu_torch.models import build_stylex
+    from stylex_tpu_torch.ops.latents import image_noise
+
+    cfg = ModelConfig()
+    ds = SyntheticImageDataset(2, cfg.image_size)
+    images = np.stack([ds[i] for i in range(2)])
+    noise = image_noise(torch.Generator().manual_seed(42), 1, cfg.image_size).numpy()
+    sweeps = {}
+    for dtype in dtypes:
+        model = build_stylex(cfg, seed=0, device="cuda").to(dtype)
+        clf = _seeded_mobilenet(cfg.image_size, dtype)
+        n_forwards = [0]
+
+        def classify(x):
+            n_forwards[0] += 1
+            return clf.classify_images(x)
+
+        def sweep():
+            return attfind_extraction(model, classify, images, noise, coord_batch=BN_BATCH,
+                                      compute_dtype=dtype, progress=False)
+
+        sweep()  # warm-up
+        n_forwards[0] = 0
+        rec, sweep_n = _bn_counters(sweep)
+        calls = n_forwards[0]
+        with _plain_batch_norm():
+            rec_plain, sweep_plain_n = _bn_counters(sweep)
+        same = all(np.array_equal(getattr(rec, f), getattr(rec_plain, f), equal_nan=True)
+                   for f in ("style_change", "base_prob", "latents", "style_coordinates",
+                             "discriminator"))
+        label = str(dtype).split(".")[-1]
+        sweeps[label] = dict(classifier_forwards=calls, counters=sweep_n,
+                             counters_plain=sweep_plain_n, records_equal=same)
+        log(f"  (c) sweep, 64 px, 2 images, {dtype}: {calls} classifier forwards, counters "
+            f"{sweep_n} (plain chain forced: {sweep_plain_n}); records equal bit for bit "
+            f"{same} [{card}]")
+        del model, clf, rec, rec_plain
+        torch.cuda.empty_cache()
+    out["sweeps"] = sweeps
+
+    # (d) one train step: autograd forwards plain, no-grad forwards fused
+    from stylex_tpu_torch.config import TrainConfig
+    from stylex_tpu_torch.train.trainer import Trainer
+
+    base = Path(tempfile.mkdtemp(prefix="stylex_bn_", dir=OUT_DIR))
+    try:
+        tc = TrainConfig(save_every=1000, evaluate_every=1000, num_image_tiles=4,
+                         compute_dtype="float32")
+        trainer = Trainer(name="smoke-bn", base_dir=str(base), model_cfg=ModelConfig(),
+                          train_cfg=tc, classifier_name="mobilenet", seed=0)
+        try:
+            trainer.set_data_src(dataset_name="synthetic")
+            trainer.init_stylex()
+            trainer.train()  # the first step: saves, evaluation, allocations
+
+            def step():
+                trainer.train()
+                trainer.flush()
+
+            _, step_n = _bn_counters(step)
+        finally:
+            trainer.close()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    out["train_step"] = step_n
+    log(f"  (d) one train step (CLI defaults, float32, MobileNetV2): {step_n} [{card}]")
+
+    head = max((r for r in rows if r["dtype"] == "float32"), key=lambda r: np.prod(r["shape"]))
+    out["headline"] = head
+    log(f"  headline float32 {head['shape']}: device_ms {head['device_ms']:.4f}, "
+        f"{head['bound_share']:.3f} of the bytes bound [{card}]")
+    bad = [(r["dtype"], r["shape"]) for r in rows if not r["equal"]]
+    if bad or not out["nan_inf_equal"]:
+        raise AssertionError(f"batch-norm kernel differs from the plain chain at {bad}, "
+                             f"NaN/inf cases equal {out['nan_inf_equal']}")
+    for label, f in forwards.items():
+        if not f["equal"] or f["fused"] != dict(fused=52, plain=0, launches=52) or \
+                f["plain"] != dict(fused=0, plain=52, launches=0):
+            raise AssertionError(f"classifier forward at {label}: {f}")
+    for label, s in sweeps.items():
+        n = s["classifier_forwards"]
+        if not s["records_equal"] or s["counters"] != dict(fused=52 * n, plain=0,
+                                                           launches=52 * n):
+            raise AssertionError(f"{label} sweep: {s}")
+    if not step_n["plain"] or not step_n["fused"] or step_n["plain"] % 52 or \
+            step_n["fused"] % 52 or step_n["launches"] != step_n["fused"]:
+        raise AssertionError(f"train step batch norms: {step_n}")
+    return out
+
+
+def batch_norm_summary(bn_out) -> dict:
+    """The ``kernels`` line's timings of the batch-norm kernel: phase 13's
+    float32 sums over one MobileNetV2 forward's batch norms at 512 x 256 px
+    (each shape times its layers), and the median host microseconds a call
+    over every shape and dtype; it never runs under autograd."""
+    rows = bn_out["kernel_rows"]
+    main = [r for r in rows if r["size"] == 256 and r["dtype"] == "float32"]
+    sums = {key: sum(r[key] * r["layers"] for r in main)
+            for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+    return {"frozen_bn": dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+                              bound_by={"bytes"},
+                              host_us=statistics.median(r["host_us"] for r in rows),
+                              host_us_grad=None, **sums)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--kernels-only", action="store_true",
@@ -2694,6 +3029,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="", help="suffix of the --kernels-only output file")
     ap.add_argument("--conv-only", action="store_true",
                     help="phases 1 and 12 only; details to chip_smoke_conv.json")
+    ap.add_argument("--bn-only", action="store_true",
+                    help="phases 1 and 13 only; details to chip_smoke_bn.json")
     ap.add_argument("--google-only", action="store_true",
                     help="phases 1, 2 and 10 only; details to chip_smoke_google.json")
     ap.add_argument("--parallel-only", action="store_true",
@@ -2724,6 +3061,14 @@ def main(argv=None) -> int:
         conv_out = columns_phase(card, rates)
         (OUT_DIR / "chip_smoke_conv.json").write_text(json.dumps(
             dict(card=card, kind=kind, columns=conv_out), indent=1, default=str))
+        log(card)
+        return 0
+
+    if args.bn_only:
+        log("[phase 13] the classifiers' batch-norm kernel")
+        bn_out = batch_norm_phase(card, rates)
+        (OUT_DIR / "chip_smoke_bn.json").write_text(json.dumps(
+            dict(card=card, kind=kind, batch_norm=bn_out), indent=1, default=str))
         log(card)
         return 0
 
@@ -2806,16 +3151,24 @@ def main(argv=None) -> int:
     columns_out["seconds"] = time.perf_counter() - t12
     log(f"  phase 12 took {columns_out['seconds']:.1f} s [{card}]")
 
+    log("[phase 13] the classifiers' batch-norm kernel: bit for bit at MobileNetV2's shapes, "
+        "times, a classifier forward, a sweep and a train step on each path")
+    t13 = time.perf_counter()
+    bn_out = batch_norm_phase(card, rates)
+    bn_out["seconds"] = time.perf_counter() - t13
+    log(f"  phase 13 took {bn_out['seconds']:.1f} s [{card}]")
+
     sources = {"upsample2x_bilinear": "stylex_tpu_torch/csrc/upsample2x_bilinear.cu",
                "blur3": "stylex_tpu_torch/csrc/blur3.cu",
                "blur3_downsample2x": "stylex_tpu_torch/csrc/blur3.cu",
                "im2col": "stylex_tpu_torch/csrc/im2col.cu",
-               "col2im": "stylex_tpu_torch/csrc/col2im.cu"}
+               "col2im": "stylex_tpu_torch/csrc/col2im.cu",
+               "frozen_bn": "stylex_tpu_torch/csrc/frozen_bn.cu"}
     replaces = {"upsample2x_bilinear": "stylex_tpu/ops/pallas_upsample.py:159",
                 "blur3": "stylex_tpu/ops/pallas_blur.py:122",
                 "blur3_downsample2x": "stylex_tpu/ops/pallas_blur.py:128",
-                "im2col": "none", "col2im": "none"}
-    timings = {**summary, **columns_summary(columns_out)}
+                "im2col": "none", "col2im": "none", "frozen_bn": "none"}
+    timings = {**summary, **columns_summary(columns_out), **batch_norm_summary(bn_out)}
     kernels = [
         dict(name=name, route="cuda", source=sources[name], replaces=replaces[name],
              launches=main_out["resume"]["launches"][name],
@@ -2859,7 +3212,7 @@ def main(argv=None) -> int:
         card_vs_cpu=cpu_errs, training=train_out, conv_precision=conv_rows,
         train_card_vs_cpu=train_cpu_errs, options=options_out, evaluation=eval_out,
         weights=weights_out, google=google_out, parallel=parallel_out, columns=columns_out,
-        seconds=time.perf_counter() - t_start,
+        batch_norm=bn_out, seconds=time.perf_counter() - t_start,
     )
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     log(f"done in {detail['seconds']:.1f} s; kernel ms, device_ms, plain_ms, library_ms and "
@@ -2881,7 +3234,10 @@ def main(argv=None) -> int:
         f"(summed over both) of (a) 5 train steps and (b) run_attfind; "
         f"gen256 (float32) and gen256_bf16 sum phase 2's times over one literal-graph forward's "
         f"upsample calls at 256 px; for im2col and col2im the times are float32 sums over phase "
-        f"12's main shapes, one call each, and host_us was not measured")
+        f"12's main shapes, one call each, and host_us was not measured; for frozen_bn they "
+        f"are float32 sums over one MobileNetV2 forward's batch norms at 512 x 256 px (phase "
+        f"13), host_us the median over its shapes and dtypes, host_us_grad none (it never "
+        f"runs under autograd)")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

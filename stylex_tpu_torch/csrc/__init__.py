@@ -20,8 +20,12 @@ convolution's column kernels (``im2col``, ``col2im``) are ``int fn(const
 void* src, void* dst, const ColumnsArgs* args, int device, void*
 stream)``, the geometry in :class:`ColumnsArgs` (``columns.cuh``'s struct,
 filled by ``ops.conv``); their shared tiles are ``TILE_FLOATS`` and
-``GATHER_FLOATS`` floats, given to ``nvcc`` as defines. Kernel names that
-share a source share its one library.
+``GATHER_FLOATS`` floats, given to ``nvcc`` as defines. The classifiers'
+batch norm (``frozen_bn``) is ``int fn(const void* y, const void* residual,
+void* out, const void* mean, const void* scale, const void* bias, long long
+n, int c, int hw, int act, int aligned, int device, void* stream)``
+(``residual`` null for none; ``hw`` 1 for channels-last; the grid sized
+in the source). Kernel names that share a source share its one library.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ KERNELS: Dict[str, tuple] = {
     "blur3_downsample2x": ("blur3.cu", ("blur3_downsample2x_f32", "blur3_downsample2x_bf16")),
     "im2col": ("im2col.cu", ("im2col_f32",)),
     "col2im": ("col2im.cu", ("col2im_f32",)),
+    "frozen_bn": ("frozen_bn.cu", ("frozen_bn_f32", "frozen_bn_bf16")),
 }
 
 # the column kernels' shared tiles, in floats: im2col's input tile and
@@ -84,11 +89,12 @@ _PLANES = [
 ]
 _COLUMNS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ColumnsArgs), ctypes.c_int,
             ctypes.c_void_p]
+_FROZEN_BN = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 # kernel name -> the argument types of its C functions
 ARGTYPES: Dict[str, list] = {"upsample2x_bilinear": _PLANES, "blur3": _PLANES,
                              "blur3_downsample2x": _PLANES, "im2col": _COLUMNS,
-                             "col2im": _COLUMNS}
+                             "col2im": _COLUMNS, "frozen_bn": _FROZEN_BN}
 
 _loaded: Dict[str, ctypes.CDLL] = {}  # kernel name -> its source's library
 _libraries: Dict[Path, ctypes.CDLL] = {}

@@ -24,6 +24,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stylex_tpu_torch.ops import frozen_bn as _bn_kernel
+from stylex_tpu_torch.utils import tracing
+
 __all__ = [
     "ResNet18",
     "MobileNetV2",
@@ -45,14 +48,37 @@ def imagenet_normalize(x: torch.Tensor) -> torch.Tensor:
 
 
 class FrozenBatchNorm2d(nn.BatchNorm2d):
-    """Batch norm ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. In
-    eval mode with the running statistics. In train mode as flax's
+    """Batch norm ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, then
+    ReLU6 where ``act`` is ``'relu6'``, then ``residual + out`` where
+    ``forward`` is given a residual (InvertedResidual's add). In eval mode
+    with the running statistics. In train mode as flax's
     ``nn.BatchNorm(momentum=0.9)``: with the batch's mean and biased
     variance, computed as E[x²] - E[x]² clipped at 0, and the running
     statistics moved to ``0.9 * old + 0.1 * batch`` (torch's own batch norm
-    would store the unbiased variance)."""
+    would store the unbiased variance).
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    In eval mode on a CUDA device, where autograd records nothing (grad
+    mode off, or neither the input, the residual nor the parameters need a
+    gradient), the layer is the hand-written pass ``ops.frozen_bn.frozen_bn``
+    (float32 or bfloat16; it raises on other dtypes): the same numbers, bit
+    for bit, in one read and one write. Train mode, autograd and the CPU run
+    the chain as separate ops. Counters ``classifier.bn_fused`` and
+    ``classifier.bn_plain`` count the layers run on each path."""
+
+    def __init__(self, num_features: int, act: Optional[str] = None):
+        super().__init__(num_features)
+        if act not in (None, "relu6"):
+            raise ValueError(f"unknown activation {act!r}")
+        self.act = act
+
+    def _fused(self, x: torch.Tensor, residual: Optional[torch.Tensor]) -> bool:
+        """Whether this forward takes the kernel."""
+        if self.training or not _bn_kernel.takes_kernel(x):
+            return False
+        operands = (x, self.weight, self.bias) + (() if residual is None else (residual,))
+        return not (torch.is_grad_enabled() and any(t.requires_grad for t in operands))
+
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
@@ -62,7 +88,12 @@ class FrozenBatchNorm2d(nn.BatchNorm2d):
                 self.running_mean.mul_(0.9).add_(mean.detach(), alpha=1.0 - 0.9)
                 self.running_var.mul_(0.9).add_(var.detach(), alpha=1.0 - 0.9)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        relu6 = self.act == "relu6"
+        if self._fused(x, residual):
+            tracing.count("classifier.bn_fused")
+            return _bn_kernel.frozen_bn(x, mean, mul, self.bias, residual, relu6)
+        tracing.count("classifier.bn_plain")
+        return _bn_kernel.frozen_bn_plain(x, mean, mul, self.bias, residual, relu6)
 
 
 class Dropout(nn.Module):
@@ -85,12 +116,10 @@ class Dropout(nn.Module):
 
 
 def _conv_bn(c_in, c_out, k, stride=1, padding=0, groups=1, act=None) -> nn.Sequential:
-    """conv -> bn (-> act), keys ``.0`` and ``.1`` as torchvision's."""
-    layers = [nn.Conv2d(c_in, c_out, k, stride, padding, groups=groups, bias=False),
-              FrozenBatchNorm2d(c_out)]
-    if act == "relu6":
-        layers.append(nn.ReLU6())
-    return nn.Sequential(*layers)
+    """conv -> bn (with its activation), keys ``.0`` and ``.1`` as
+    torchvision's (whose ReLU6, ``.2``, holds no parameters)."""
+    return nn.Sequential(nn.Conv2d(c_in, c_out, k, stride, padding, groups=groups, bias=False),
+                         FrozenBatchNorm2d(c_out, act=act))
 
 
 class BasicBlock(nn.Module):
@@ -145,8 +174,11 @@ class InvertedResidual(nn.Module):
         self.conv = nn.Sequential(*layers)
 
     def forward(self, x):
-        out = self.conv(x)
-        return x + out if self.use_res else out
+        *body, bn = self.conv  # the last batch norm adds the residual
+        out = x
+        for layer in body:
+            out = layer(out)
+        return bn(out, x if self.use_res else None)
 
 
 # (expand_ratio, channels, repeats, stride): the MobileNetV2 paper's table

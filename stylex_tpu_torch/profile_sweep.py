@@ -68,7 +68,8 @@ def device_summary(prof, reps: int, window_ms: float):
 # the package's kernels: name -> a substring of their symbols (csrc/*.cu;
 # blur3_kernel is both blur variants)
 OWN_KERNELS = {"upsample2x_bilinear": "upsample2x_bilinear_kernel", "blur3": "blur3_kernel",
-               "im2col": "im2col_kernel", "col2im": "col2im_kernel"}
+               "im2col": "im2col_kernel", "col2im": "col2im_kernel",
+               "frozen_bn": "frozen_bn_kernel"}
 
 # kernel kinds by name, first match wins (cuDNN's layout transposes first)
 KINDS = (

@@ -252,6 +252,22 @@ def test_wrappers_take_plain_path_on_cpu(monkeypatch, name, dtype):
     assert tblur.LAUNCHES == before
 
 
+def test_frozen_bn_refuses_what_the_kernel_does_not_take(monkeypatch):
+    """The batch-norm kernel's wrapper raises, without building anything, on
+    a CPU input (float32 or bfloat16, NCHW or channels-last) and on a 3-d
+    one; the module sends no CPU tensor to it."""
+    from stylex_tpu_torch.ops import frozen_bn as fbn
+
+    monkeypatch.setattr(csrc, "load", lambda *_: pytest.fail("a refused call built the kernel"))
+    y = torch.zeros(2, 3, 4, 4)
+    p = torch.zeros(3)
+    for bad in (y, y.bfloat16(), y.to(memory_format=torch.channels_last), y[0]):
+        assert not fbn.takes_kernel(bad)
+        with pytest.raises(TypeError, match="frozen_bn"):
+            fbn.frozen_bn(bad, p, p, p)
+    assert not fbn.takes_kernel(torch.empty(2, 3, 4, 4, device="meta"))
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.empty(1, 1, 4, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

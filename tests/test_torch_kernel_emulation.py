@@ -16,7 +16,12 @@ its storage; the convolution's column kernels with the arguments
 ``ops.conv`` builds (``im2col_launch``, ``col2im_launch``), float32,
 against ``im2col_plain`` and ``col2im_plain`` at the step's kinds of window,
 with the wrapper's tiles and with the smallest ones (one channel a block,
-tiles ragged at the edges), and strided inputs. It shows the sources'
+tiles ragged at the edges), and strided inputs; the classifiers' batch norm
+(``csrc/frozen_bn.cu``) through ``ops.frozen_bn.launch``, float32 and
+bfloat16, at every batch norm of MobileNetV2 at 64 and 256 px, at ragged
+planes, channels-last and misaligned inputs and NaN and infinite values,
+against ``frozen_bn_plain``.
+It shows the sources'
 indexing, edge handling and order of operations, not that ``nvcc`` accepts
 them or how fast they run: that is ``chip_smoke.py``'s work on the card. Skips where no C++ compiler is found.
 """
@@ -34,6 +39,7 @@ import torch
 from stylex_tpu_torch import csrc
 from stylex_tpu_torch.ops import blur as tblur
 from stylex_tpu_torch.ops import conv as tconv
+from stylex_tpu_torch.ops import frozen_bn as tbn
 
 CSRC = Path(csrc.__file__).resolve().parent
 
@@ -48,6 +54,7 @@ STUB = r"""
 #define __restrict__ __restrict
 #define __shared__ static
 #include <algorithm>
+#include <cmath>
 #include <functional>
 #include <vector>
 #include <ucontext.h>
@@ -81,6 +88,7 @@ inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 struct __nv_bfloat16 { unsigned short x; };
 inline __nv_bfloat16 __ushort_as_bfloat16(unsigned short r) { return {r}; }
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
@@ -302,3 +310,105 @@ def test_column_kernel_sources_match_plain_versions(libraries, shape, k, s, p, v
         want = tconv.col2im_plain(grad, (h, w), k, s, p)
         assert torch.equal(dx, want), (dx - want).abs().max()
         assert torch.equal(torch.signbit(dx), torch.signbit(want))
+
+
+def _bn_operands(shape, residual: bool, seed: int, dtype=torch.float32, offset: int = 0):
+    """y (``offset`` elements into its storage), its residual or None, and
+    the channels' mean, scale (rsqrt(var + eps) * weight in ``dtype``, as
+    the module computes it) and bias; y spread wide enough to reach both
+    clamps."""
+    rng = np.random.RandomState(seed)
+    c = shape[1]
+    numel = int(np.prod(shape))
+
+    def draw(*size, spread=1.0, shift=0.0):
+        return torch.from_numpy((spread * rng.randn(*size) + shift).astype(np.float32)).to(dtype)
+
+    y = draw(numel + offset, spread=3.0)[offset:].view(shape)
+    res = draw(*shape) if residual else None
+    mean, var = draw(c), torch.from_numpy(rng.rand(c).astype(np.float32) + 0.25).to(dtype)
+    weight, bias = draw(c), draw(c)
+    return y, res, mean, torch.rsqrt(var + 1e-5) * weight, bias
+
+
+def _bn_check(lib, y, res, mean, scale, bias, relu6, nan=False):
+    before = lib.misaligned_loads()
+    fn = getattr(lib, f"frozen_bn_{tbn._SUFFIX[y.dtype]}")
+    got = tbn.launch(fn, y, mean, scale, bias, res, relu6, 0, None)
+    assert lib.misaligned_loads() == before, "a vector load was not aligned to its size"
+    want = tbn.frozen_bn_plain(y, mean, scale, bias, res, relu6)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if nan:  # NaN where the chain gives NaN, every other value equal
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    else:
+        assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("size,batch", [(64, 2), (256, 1)])
+def test_frozen_bn_source_matches_plain_chain_at_mobilenet_shapes(libraries, size, batch,
+                                                                  dtype):
+    """Every batch norm of one MobileNetV2 forward, with its ReLU6 and its
+    residual as the network hands them over, bit for bit."""
+    import sys
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from chip_smoke import batch_norm_calls
+
+    calls = batch_norm_calls((batch, 3, size, size))
+    assert len(calls) == 52
+    for i, (shape, relu6, residual) in enumerate(sorted(set(calls))):
+        _bn_check(libraries["frozen_bn"], *_bn_operands(shape, residual, i, dtype), relu6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 3, 5, 7), (2, 5, 1, 1), (3, 4, 3, 3),
+                                   (2, 6, 2, 3), (1, 2, 16, 16)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_frozen_bn_source_matches_plain_chain_at_ragged_planes(libraries, shape, offset, dtype):
+    """Planes whose H * W is no multiple of the vector (each element its own
+    channel, the tail one at a time), and an input one element into its
+    storage (scalar accesses)."""
+    for relu6 in (False, True):
+        for residual in (False, True):
+            _bn_check(libraries["frozen_bn"],
+                      *_bn_operands(shape, residual, sum(shape), dtype, offset), relu6)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 4, 4), (2, 3, 5, 7), (4, 3, 1, 2)])
+def test_frozen_bn_source_channels_last(libraries, shape):
+    """A channels-last input (the channel fastest in memory) keeps its
+    layout, with a residual in either layout."""
+    for dtype in DTYPES:
+        y, res, mean, scale, bias = _bn_operands(shape, True, 3, dtype)
+        y = y.contiguous(memory_format=torch.channels_last)
+        for r in (res, res.contiguous(memory_format=torch.channels_last)):
+            _bn_check(libraries["frozen_bn"], y, r, mean, scale, bias, True)
+        got = tbn.launch(libraries["frozen_bn"].frozen_bn_f32 if dtype == torch.float32 else
+                         libraries["frozen_bn"].frozen_bn_bf16, y, mean, scale, bias, None,
+                         False, 0, None)
+        assert got.stride() == y.stride()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 4, 8, 8), (2, 3, 5, 7)])
+def test_frozen_bn_source_propagates_nan_and_inf(libraries, shape, dtype):
+    """NaN and both infinities in y and in the residual, and a channel whose
+    scale is 0 (inf * 0): NaN where the chain gives NaN, the clamp's 0 and 6
+    for the infinities."""
+    y, res, mean, scale, bias = _bn_operands(shape, True, 7, dtype)
+    flat, rflat = y.view(-1), res.view(-1)
+    flat[::5] = float("nan")
+    flat[1::7] = float("inf")
+    flat[2::7] = -float("inf")
+    rflat[3::11] = float("inf")
+    rflat[4::13] = float("nan")
+    scale[1] = 0.0
+    for relu6 in (False, True):
+        for r in (None, res):
+            _bn_check(libraries["frozen_bn"], y, r, mean, scale, bias, relu6, nan=True)

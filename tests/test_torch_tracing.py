@@ -147,7 +147,9 @@ def test_train_steps_under_a_profiler(tmp_path):
     # three images stacks of A = 2 micro-batches a step, one take each
     assert names["train.data_wait"] == 2 * 3 * 2
     assert "train.wait" not in names  # the host's blocks land at once
-    assert set(snap["counters"]) <= {"loader.blocked"}
+    # the classifier's batch norms on the CPU: every layer on the plain chain
+    assert set(snap["counters"]) <= {"loader.blocked", "classifier.bn_plain"}
+    assert snap["counters"]["classifier.bn_plain"] > 0
     waits = [s for s in spans if s["name"] == "train.data_wait"]
     assert all(by_id[s["parent"]]["name"] == "train.block" for s in waits)
 
